@@ -1,0 +1,168 @@
+"""The STARK field as PyTorch tensors, and the plain field arithmetic.
+
+Counterpart of `starks_tpu/ops/limbs.py` plus the lane functions of
+`starks_tpu/ops/plimbs.py` (`_add_lanes`, `_sub_lanes`, `_mul_lanes`,
+`_cube_lanes`).
+
+Storage: a field element is a `torch.int32` tensor of shape [..., 8]
+holding the 8 little-endian 32-bit words of its canonical value (bits
+reinterpreted as signed). 32 contiguous bytes per element: two 16-byte
+loads per CUDA thread, and the word size of the kernels' 32x32->64-bit
+carry chains (csrc/field.cuh).
+
+The plain arithmetic below is the reference form of every kernel: it
+runs in `int64` on 16-bit limbs, because CPU builds of torch have no
+`+` or `>>` for `uint32`. Every result is canonical, so any correct
+reduction gives the same bits as the JAX package's limb kernels.
+"""
+
+import numpy as np
+import torch
+
+MODULUS = 2**256 - 351 * 2**32 + 1
+NUM_WORDS = 8
+NUM_LIMBS = 16
+_M16 = 0xFFFF
+_M32 = 0xFFFFFFFF
+
+
+def _limbs_of(x: int, n: int = NUM_LIMBS):
+    return [(x >> (16 * i)) & _M16 for i in range(n)]
+
+
+_P_LIMBS = _limbs_of(MODULUS)
+_C_LIMBS = _limbs_of(2**256 % MODULUS, 3)     # c = 351*2^32 - 1
+
+
+# -- storage <-> working form -------------------------------------------
+
+def words_u32(x: torch.Tensor) -> torch.Tensor:
+    """[..., 8] int32 storage -> [..., 8] int64 word values in [0, 2^32)."""
+    return x.to(torch.int64) & _M32
+
+
+def words_to_storage(w: torch.Tensor) -> torch.Tensor:
+    """[..., 8] int64 word values in [0, 2^32) -> int32 storage."""
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def to_limbs16(x: torch.Tensor) -> torch.Tensor:
+    """[..., 8] int32 storage -> [..., 16] int64 16-bit limbs."""
+    w = words_u32(x)
+    return torch.stack([w & _M16, w >> 16], dim=-1).reshape(
+        *x.shape[:-1], NUM_LIMBS)
+
+
+def from_limbs16(limbs: torch.Tensor) -> torch.Tensor:
+    """[..., 16] int64 16-bit limbs -> [..., 8] int32 storage."""
+    pairs = limbs.reshape(*limbs.shape[:-1], NUM_WORDS, 2)
+    return words_to_storage(pairs[..., 0] | (pairs[..., 1] << 16))
+
+
+def from_jax_limbs(limbs: np.ndarray, device=None) -> torch.Tensor:
+    """JAX-package limbs ([N, 16] uint32, 16-bit values) -> port tensor."""
+    limbs = np.asarray(limbs, dtype=np.uint32)
+    words = limbs[..., 0::2] | (limbs[..., 1::2] << 16)
+    return torch.from_numpy(
+        np.ascontiguousarray(words).view(np.int32).copy()).to(device)
+
+
+def to_jax_limbs(x: torch.Tensor) -> np.ndarray:
+    """Port tensor -> JAX-package limbs ([N, 16] uint32)."""
+    w = x.detach().cpu().contiguous().numpy().view(np.uint32)
+    return np.stack([w & _M16, w >> 16], axis=-1).reshape(
+        *w.shape[:-1], NUM_LIMBS).astype(np.uint32)
+
+
+# -- plain arithmetic on [..., 16] int64 limbs --------------------------
+
+def _carry(cols: torch.Tensor):
+    """Propagate signed int64 columns into 16-bit limbs.
+
+    Returns (limbs [..., K], carry [...]); the carry is negative when
+    the columns sum to a negative value (a borrow)."""
+    out = torch.empty_like(cols)
+    carry = torch.zeros_like(cols[..., 0])
+    for i in range(cols.shape[-1]):
+        t = cols[..., i] + carry
+        out[..., i] = t & _M16
+        carry = t >> 16
+    return out, carry
+
+
+def _p_like(x: torch.Tensor, width: int = NUM_LIMBS) -> torch.Tensor:
+    return torch.tensor(_P_LIMBS + [0] * (width - NUM_LIMBS),
+                        dtype=torch.int64, device=x.device)
+
+
+def _cond_sub_p(x: torch.Tensor, top=None) -> torch.Tensor:
+    """x - p where (top:x) >= p, else x; for (top:x) < 2p."""
+    if top is not None:
+        x = torch.cat([x, top[..., None]], dim=-1)
+    d, borrow = _carry(x - _p_like(x, x.shape[-1]))
+    return torch.where((borrow >= 0)[..., None], d, x)[..., :NUM_LIMBS]
+
+
+def add16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    s, carry = _carry(a + b)
+    return _cond_sub_p(s, carry)
+
+
+def sub16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d, borrow = _carry(a - b)
+    e, _ = _carry(d + _p_like(d))
+    return torch.where((borrow < 0)[..., None], e, d)
+
+
+def mul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Schoolbook 16x16 limbs, two folds of the high half by
+    c = 2^256 mod p, a carry fold, one conditional subtract of p."""
+    a, b = torch.broadcast_tensors(a, b)
+    prod = a[..., :, None] * b[..., None, :]            # each < 2^32
+    cols = torch.zeros(*a.shape[:-1], 2 * NUM_LIMBS, dtype=torch.int64,
+                       device=a.device)
+    for i in range(NUM_LIMBS):
+        cols[..., i:i + NUM_LIMBS] += prod[..., i, :]
+    w, _ = _carry(cols)                                 # 512-bit value
+    f = torch.zeros(*a.shape[:-1], NUM_LIMBS + 4, dtype=torch.int64,
+                    device=a.device)
+    f[..., :NUM_LIMBS] = w[..., :NUM_LIMBS]
+    for k, c in enumerate(_C_LIMBS):
+        f[..., k:k + NUM_LIMBS] += c * w[..., NUM_LIMBS:]
+    f, _ = _carry(f)                                    # < 2^298
+    g = f[..., :NUM_LIMBS].clone()
+    for k, c in enumerate(_C_LIMBS):
+        g[..., k:k + 4] += c * f[..., NUM_LIMBS:]
+    g, top = _carry(g)                                  # top in {0, 1}
+    for k, c in enumerate(_C_LIMBS):
+        g[..., k] += c * top
+    g, _ = _carry(g)
+    return _cond_sub_p(g)
+
+
+def cube16(a: torch.Tensor) -> torch.Tensor:
+    return mul16(mul16(a, a), a)
+
+
+# -- plain arithmetic on storage tensors --------------------------------
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p on [..., 8] int32 tensors."""
+    return from_limbs16(add16(to_limbs16(a), to_limbs16(b)))
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return from_limbs16(sub16(to_limbs16(a), to_limbs16(b)))
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return from_limbs16(mul16(to_limbs16(a), to_limbs16(b)))
+
+
+def cube(a: torch.Tensor) -> torch.Tensor:
+    return from_limbs16(cube16(to_limbs16(a)))
+
+
+def cond_sub_p(a: torch.Tensor) -> torch.Tensor:
+    """Canonicalize a value in [0, 2p) (e.g. a 256-bit digest)."""
+    return from_limbs16(_cond_sub_p(to_limbs16(a)))

@@ -1,0 +1,66 @@
+"""Layer-parallel Merkle trees over evaluation tables.
+
+Counterpart of `starks_tpu.ops.fused.tree_build_unrolled` /
+`tree_bundle` (top_levels=0) and `ops/merkle.py::bundle_to_branches`.
+Level k's hashes run as ONE batched blake2s call. Byte formats match
+SURVEY §A.4: leaves are the raw 32-byte big-endian values (or 96-byte
+P||D||B composites), unhashed; parent = blake2s(left || right);
+branches are [leaf, sibling leaf, digest siblings...] bottom-up.
+"""
+
+import numpy as np
+import torch
+
+from . import blake2s as b2
+
+
+def tree_build(leaf_words):
+    """Tree over [M, W] int64 leaf words (W = 8 for 32-byte leaves, 24
+    for the 96-byte P||D||B leaves). Returns (lvl1 [M/2, 8], levels
+    [[M/4, 8], [M/8, 8], ..., [1, 8]], root [8]), every level at its
+    true size."""
+    m, w = leaf_words.shape
+    lvl1 = b2.blake2s_words(leaf_words.reshape(m // 2, 2 * w), 2 * w * 4)
+    levels = []
+    cur = lvl1
+    while cur.shape[0] > 1:
+        cur = b2.blake2s_words(cur.reshape(cur.shape[0] // 2, 16), 64)
+        levels.append(cur)
+    root = levels[-1][0] if levels else lvl1[0]
+    return lvl1, levels, root
+
+
+def tree_bundle(leaf_words, lvl1, levels, idx):
+    """[K, 2W + 8*(log2(M)-1)] branch bundles for int64 indices `idx`:
+    leaf, sibling leaf, then the sibling digest at each level bottom-up
+    (the root omitted), gathered on device."""
+    parts = [leaf_words[idx], leaf_words[idx ^ 1]]
+    node = idx >> 1
+    if levels:
+        parts.append(lvl1[node ^ 1])
+        node = node >> 1
+    for level in levels[:-1]:
+        parts.append(level[node ^ 1])
+        node = node >> 1
+    return torch.cat(parts, dim=-1)
+
+
+def bundle_to_branches(bundle_np, leaf_width_words: int) -> list:
+    """Host decode of a fetched [K, total] uint32 bundle into
+    reference-format branches [leaf, sibling leaf, digest siblings...]."""
+    k, total = bundle_np.shape
+    w = leaf_width_words
+    n_levels = (total - 2 * w) // 8
+    buf = np.ascontiguousarray(bundle_np).astype('<u4',
+                                                 copy=False).tobytes()
+    row_b = 4 * total
+    out = []
+    for r in range(k):
+        base = r * row_b
+        branch = [buf[base:base + 4 * w], buf[base + 4 * w:base + 8 * w]]
+        off = base + 8 * w
+        for _ in range(n_levels):
+            branch.append(buf[off:off + 32])
+            off += 32
+        out.append(branch)
+    return out

@@ -1,0 +1,285 @@
+"""The six field kernels of the MiMC proof, each beside its plain version.
+
+Counterpart of the Pallas kernels of `starks_tpu/ops/plimbs.py`. Each
+wrapper takes [n, 8] int32 field tensors (ops/limbs.py). Given CUDA
+tensors it launches its hand-written kernel (csrc/kernels.cu, built by
+ops/_build.py) on the current stream, or raises; given CPU tensors it
+runs its plain PyTorch version, which repeats the kernel's arithmetic
+and is what the CPU tests hold against the JAX package. `LAUNCHES`
+counts each wrapper's kernel launches.
+
+Bounds on the card (32-byte elements, n elements per array): bytes over
+3.35 TB/s against 32-bit integer multiply-adds over the card's peak
+rate, 148 per modmul (chip_smoke.py). The NTT stages, scale and the L
+map are bound by their bytes; the D/B map and fold4, with 6 modmuls per
+element, by their operations. PERF.md gives each kernel's time beside
+its bound.
+"""
+
+import torch
+
+from . import _build
+from . import limbs as fl
+
+NUM_WORDS = fl.NUM_WORDS
+L16 = fl.to_limbs16
+
+LAUNCHES = dict.fromkeys(
+    ["dif_stage", "dit_stage", "scale", "db_map", "l_map", "fold4"], 0)
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_card(*tensors) -> bool:
+    """True for CUDA operands the kernels take, False for CPU operands;
+    raises for anything else."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"operands on {t.device} and {dev}")
+        if t.dtype != torch.int32 or t.shape[-1] != NUM_WORDS:
+            raise ValueError(f"expected [..., 8] int32 field elements, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("kernel operands must be contiguous and "
+                             "16-byte aligned")
+    return True
+
+
+def _launch(name, device, *args):
+    """Launch starks_<name> on the current stream; tensors pass as
+    pointers, ints as uint32."""
+    fn = getattr(_build.load(), "starks_" + name)
+    for a in args:
+        if not isinstance(a, torch.Tensor) and not 0 <= a < 2**31:
+            raise ValueError(f"kernel {name}: size argument {a} out of "
+                             f"range")
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    rc = fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {name}: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def _check_size(n: int):
+    if n < 2 or n & (n - 1) or n >= 2**31:
+        raise ValueError(f"size {n} is not a power of two in [2, 2^31)")
+
+
+def _check_stage(n: int, table, t: int):
+    _check_size(n)
+    if not 0 <= t < n.bit_length() - 1:
+        raise ValueError(f"stage {t} out of range for size {n}")
+    if table.shape[0] < n // 2:
+        raise ValueError("twiddle table shorter than n/2")
+
+
+def _check_tables(*tables):
+    if any(t.dim() != 2 or t.shape[0] == 0 for t in tables):
+        raise ValueError("periodic tables must be non-empty [L, 8]")
+
+
+def _stage_twiddles(table, t: int, half: int):
+    """Stage-t Pease twiddles TW[j] = table[(j >> t) << t], j < half."""
+    j = torch.arange(half, device=table.device)
+    return table[(j >> t) << t]
+
+
+# -- A1: DIF stage ------------------------------------------------------
+
+def dif_stage_plain(x, table, t: int):
+    n = x.shape[0]
+    half = n // 2
+    a, b = L16(x[:half]), L16(x[half:])
+    u = fl.add16(a, b)
+    v = fl.mul16(fl.sub16(a, b), L16(_stage_twiddles(table, t, half)))
+    return fl.from_limbs16(torch.stack([u, v], dim=1).reshape(n, -1))
+
+
+def dif_stage(x, table, t: int):
+    """One Pease DIF stage over x [n, 8]: a = x[:n/2], b = x[n/2:],
+    w = table[(j >> t) << t]; out[2j] = a + b, out[2j+1] = (a - b) * w.
+
+    Replaces `_dif_kernel` (starks_tpu/ops/plimbs.py:154, launched by
+    `dif_stage_x`, :367). The kernel reads the halves and the twiddle
+    table by offset and writes the interleaved output itself, so no
+    stacked twiddle table or interleave copy is built. Bound: bytes,
+    64n + 32*(n/2 >> t)."""
+    n = x.shape[0]
+    _check_stage(n, table, t)
+    if not _on_card(x, table):
+        return dif_stage_plain(x, table, t)
+    out = torch.empty_like(x)
+    _launch("dif_stage", x.device, x, table, out, n, t)
+    return out
+
+
+# -- A3: DIT stage ------------------------------------------------------
+
+def dit_stage_plain(x, table, t: int):
+    n = x.shape[0]
+    half = n // 2
+    pairs = L16(x).reshape(half, 2, -1)
+    wb = fl.mul16(L16(_stage_twiddles(table, t, half)), pairs[:, 1])
+    return fl.from_limbs16(torch.cat([fl.add16(pairs[:, 0], wb),
+                                      fl.sub16(pairs[:, 0], wb)]))
+
+
+def dit_stage(x, table, t: int):
+    """One DIT stage over x [n, 8]: a = x[2j], b = x[2j+1],
+    w = table[(j >> t) << t]; out[j] = a + w*b, out[j + n/2] = a - w*b.
+
+    Replaces `_dit_kernel` (starks_tpu/ops/plimbs.py:161, launched by
+    `dit_stage_t`, :385). Pairs are read in place, so no de-interleave
+    or concatenate copy is built. Bound: bytes, 64n + 32*(n/2 >> t)."""
+    n = x.shape[0]
+    _check_stage(n, table, t)
+    if not _on_card(x, table):
+        return dit_stage_plain(x, table, t)
+    out = torch.empty_like(x)
+    _launch("dit_stage", x.device, x, table, out, n, t)
+    return out
+
+
+# -- A2: scale ----------------------------------------------------------
+
+def scale_plain(x, s):
+    return fl.mul(x, s[None])
+
+
+def scale(x, s):
+    """x * s for a scalar element s [8].
+
+    Replaces `_scale_kernel` (starks_tpu/ops/plimbs.py:175, launched by
+    `scale_t`, :400). Bound: bytes, 64n."""
+    if s.shape != (NUM_WORDS,):
+        raise ValueError("s must be one [8] element")
+    if not _on_card(x, s):
+        return scale_plain(x, s)
+    out = torch.empty_like(x)
+    _launch("scale", x.device, x, s, out, x.shape[0])
+    return out
+
+
+# -- A4: constraint / quotient / boundary map ---------------------------
+
+def db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+    n = p.shape[0]
+    i = torch.arange(n, device=p.device)
+    pl = L16(p)
+    x = L16(xs)
+    c = fl.sub16(fl.sub16(L16(torch.roll(p, -shift, 0)), fl.cube16(pl)),
+                 L16(k_tab)[i % k_tab.shape[0]])
+    d = fl.mul16(fl.mul16(c, fl.sub16(x, L16(last))),
+                 L16(zni_tab)[i % zni_tab.shape[0]])
+    i_ev = fl.add16(L16(ia), fl.mul16(L16(slope), x))
+    b = fl.mul16(fl.sub16(pl, i_ev), L16(iz2))
+    return fl.from_limbs16(d), fl.from_limbs16(b)
+
+
+def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+    """The fused D/B map over the evaluation domain:
+      C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
+      B = (P - (ia + slope*x)) * Z2^-1,
+    with P(g1 x) = p[(i + shift) % n], K and Znum^-1 periodic tables read
+    modulo their length, and last, slope, ia scalars [8]. Returns (D, B).
+
+    Replaces `_db_kernel` (starks_tpu/ops/plimbs.py:181, launched by
+    `db_map_t`, :418). The kernel reads P(g1 x) by offset, so the rolled
+    copy of P is never built. Bound: operations, 6 modmuls per element
+    (bytes 160n: P, x, 1/Z2 in; D, B out)."""
+    n = p.shape[0]
+    _check_size(n)
+    for t in (xs, iz2):
+        if t.shape[0] != n:
+            raise ValueError("P, xs and 1/Z2 must have equal length")
+    for t in (last, slope, ia):
+        if t.shape != (NUM_WORDS,):
+            raise ValueError("last, slope and ia must be [8] elements")
+    if not 0 <= shift < n:
+        raise ValueError("shift out of range")
+    _check_tables(k_tab, zni_tab)
+    if not _on_card(p, xs, k_tab, zni_tab, iz2, last, slope, ia):
+        return db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia,
+                            shift)
+    d, b = torch.empty_like(p), torch.empty_like(p)
+    _launch("db_map", p.device, p, xs, k_tab, k_tab.shape[0], zni_tab,
+            zni_tab.shape[0], iz2, last, slope, ia, d, b, n, shift)
+    return d, b
+
+
+# -- A5: linear combination ---------------------------------------------
+
+def l_map_plain(d, p, b, cp, cb):
+    i = torch.arange(d.shape[0], device=d.device)
+    t = fl.add16(fl.mul16(L16(p), L16(cp)[i % cp.shape[0]]),
+                 fl.mul16(L16(b), L16(cb)[i % cb.shape[0]]))
+    return fl.from_limbs16(fl.add16(L16(d), t))
+
+
+def l_map(d, p, b, cp, cb):
+    """L = D + cp(x)*P + cb(x)*B with periodic coefficient tables cp, cb.
+
+    Replaces `_l_kernel` (starks_tpu/ops/plimbs.py:203, launched by
+    `l_map_t`, :451). Bound: bytes, 128n (D, P, B in; L out)."""
+    n = d.shape[0]
+    if p.shape[0] != n or b.shape[0] != n:
+        raise ValueError("D, P and B must have equal length")
+    _check_tables(cp, cb)
+    if not _on_card(d, p, b, cp, cb):
+        return l_map_plain(d, p, b, cp, cb)
+    out = torch.empty_like(d)
+    _launch("l_map", d.device, d, p, b, cp, cp.shape[0], cb, cb.shape[0],
+            out, n)
+    return out
+
+
+# -- A6: FRI fold by 4 --------------------------------------------------
+
+def fold4_plain(values, ip, sx, eta, inv4):
+    q = values.shape[0] // 4
+    y0, y1, y2, y3 = L16(values).reshape(4, q, -1)
+    e0, d02 = fl.add16(y0, y2), fl.sub16(y0, y2)
+    e1, d13 = fl.add16(y1, y3), fl.sub16(y1, y3)
+    a0, a2 = fl.add16(e0, e1), fl.sub16(e0, e1)
+    h = fl.mul16(d13, L16(eta))
+    a1, a3 = fl.sub16(d02, h), fl.add16(d02, h)
+    u = fl.mul16(L16(sx), L16(ip[:q]))
+    acc = fl.add16(fl.mul16(u, a3), a2)
+    acc = fl.add16(fl.mul16(u, acc), a1)
+    acc = fl.add16(fl.mul16(u, acc), a0)
+    return fl.from_limbs16(fl.mul16(acc, L16(inv4)))
+
+
+def fold4(values, ip, sx, eta, inv4):
+    """FRI fold by 4: values [n, 8] -> column [n/4, 8]. With q = n/4 and
+    y_j = values[j*q + i]: the 4-point DFT of (y0..y3) using eta, Horner
+    at u = sx * ip[i], times inv4. ip holds g^-i for i < q.
+
+    Replaces `_fold4_kernel` (starks_tpu/ops/plimbs.py:212, launched by
+    `fold4_t`, :483 and :472). The four quarters are read by offset.
+    Bound: operations, 6 modmuls per output (bytes 48n: values and ip
+    in; the column out)."""
+    n = values.shape[0]
+    _check_size(n)
+    q = n // 4
+    if n < 4 or ip.shape[0] < q:
+        raise ValueError("fold4 needs n >= 4 and q entries of ip")
+    for t in (sx, eta, inv4):
+        if t.shape != (NUM_WORDS,):
+            raise ValueError("sx, eta and inv4 must be [8] elements")
+    if not _on_card(values, ip, sx, eta, inv4):
+        return fold4_plain(values, ip, sx, eta, inv4)
+    out = torch.empty((q, NUM_WORDS), dtype=torch.int32,
+                      device=values.device)
+    _launch("fold4", values.device, values, ip, sx, eta, inv4, out, q)
+    return out

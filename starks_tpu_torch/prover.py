@@ -1,0 +1,259 @@
+"""MiMC STARK prover on PyTorch and CUDA.
+
+Port of the single-device path of `starks_tpu/prover.py`
+(`mk_mimc_proof` -> `_prove_from_trace_fused` -> `post_trace_pl`). The
+pipeline is identical in math and transcript bytes (SURVEY.md §4.1):
+
+  host trace -> LDE (DIF/scale/DIT kernels) -> D/B map kernel ->
+  commit P||D||B -> Fiat-Shamir weights -> L map kernel -> commit L ->
+  spot-check bundles -> FRI (fold4 kernel per round) ->
+  one device-to-host copy -> host byte assembly.
+
+Challenges, query indices and branch bundles are derived on the device
+(ops/transcript_dev.py, ops/merkle.py), so nothing waits on the host
+until the final copy. Proofs equal `oracle.stark.mk_mimc_proof` byte for
+byte (tests/test_torch_prover.py).
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from .config import StarkConfig, REFERENCE
+from .models import mimc as mimc_model
+from .ops import blake2s as b2
+from .ops import fused
+from .ops import merkle
+from .ops import plimbs
+from .ops import transcript_dev as td
+from .transcript import is_a_power_of_2
+from .utils import hostfield as hf
+from .utils.conversions import (digest_words_to_bytes, int_to_tensor,
+                                ints_to_tensor)
+
+MODULUS = REFERENCE.modulus
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device; pass device='cpu' to run "
+                               "the plain PyTorch versions of the kernels")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+class _StageTimer:
+    """Per-stage wall-clock seconds into `out` (when given). Each mark
+    first waits for the device, so each stage's time is its own."""
+
+    def __init__(self, out, device):
+        self.out = out
+        self.device = device
+        self.t0 = self.last = time.perf_counter()
+
+    def mark(self, stage: str):
+        if self.out is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.out[stage] = now - self.last
+        self.last = now
+
+    def finish(self):
+        if self.out is not None:
+            self.out["total"] = time.perf_counter() - self.t0
+
+
+class _FusedSetup:
+    """Per-(steps, config, device) schedule and constants."""
+
+    _cache = {}
+
+    def __init__(self, steps: int, config: StarkConfig, device):
+        ext = config.extension_factor
+        precision = steps * ext
+        G2 = pow(config.generator, (MODULUS - 1) // precision, MODULUS)
+        G1 = pow(G2, ext, MODULUS)
+        self.steps, self.config, self.device = steps, config, device
+        self.precision, self.ext = precision, ext
+        self.G1, self.G2 = G1, G2
+        self.schedule = fused.fri_round_schedule(
+            precision, steps * 2, config.fri_base_cutoff)
+        self.plan = fused.FusedPlan(steps, precision, G1, G2,
+                                    len(self.schedule), device)
+
+        last = pow(G2, (steps - 1) * ext, MODULUS)
+        h = pow(G2, steps, MODULUS)
+        self.islope = hf.inv(last - 1)
+        self.last_l = int_to_tensor(last, device)
+        self.zni8 = ints_to_tensor(
+            [hf.inv(pow(h, i, MODULUS) - 1) for i in range(ext)], device)
+        self.h_pows = ints_to_tensor(
+            [pow(h, i, MODULUS) for i in range(ext)], device)
+        self.eta_l = int_to_tensor(pow(G2, precision // 4, MODULUS), device)
+        self.inv4_l = int_to_tensor(hf.inv(4), device)
+
+        # 1/Z2 with Z2(x) = (x - 1)(x - last): a constant of the config,
+        # inverted once on the host (zeros map to zero).
+        self.inv_z2 = ints_to_tensor(
+            hf.multi_inv([(x - 1) * (x - last) % MODULUS
+                          for x in fused.powers(G2, precision)]), device)
+        self._kext = {}
+
+    @classmethod
+    def get(cls, steps: int, config: StarkConfig, device) -> "_FusedSetup":
+        key = (steps, config, str(device))
+        if key not in cls._cache:
+            cls._cache[key] = cls(steps, config, device)
+        return cls._cache[key]
+
+    def k_ext(self, round_constants):
+        """Round-constant mini-polynomial extension K over the 8x domain
+        (SURVEY §4.1 step 4): a tiny host NTT, cached per constant list."""
+        key = tuple(round_constants)
+        if key not in self._kext:
+            skips2 = self.steps // len(round_constants)
+            mini = hf.host_ntt(list(round_constants),
+                               pow(self.G1, skips2, MODULUS), inverse=True)
+            k_ext = hf.host_ntt(mini, pow(self.G2, skips2, MODULUS))
+            self._kext[key] = ints_to_tensor(
+                [x % MODULUS for x in k_ext], self.device)
+        return self._kext[key]
+
+
+def _prove_sections(su: _FusedSetup, trace, k_ext, inp: int, output: int,
+                    timer: _StageTimer):
+    """The device part of a proof (post_trace_pl without pruning):
+    returns the named sections, as int64 word tensors on the device."""
+    plan = su.plan
+    cfg = su.config
+    precision, ext = su.precision, su.ext
+
+    # 2-3. LDE.
+    p = fused.lde(trace, plan.inv_small, plan.n_inv_small, plan.xs_big)
+    timer.mark("lde")
+
+    # 5-7. Constraint, quotient and boundary as one kernel. The boundary
+    # interpolant through (1, inp), (last, output) is built on the host.
+    slope = (output - inp) * su.islope % MODULUS
+    ia = (inp - slope) % MODULUS
+    d, b = plimbs.db_map(p, plan.xs_big, k_ext, su.zni8, su.inv_z2,
+                         su.last_l, int_to_tensor(slope, su.device),
+                         int_to_tensor(ia, su.device), ext)
+    timer.mark("constraints/quotient/boundary")
+
+    # 8. Commit #1: 96-byte P||D||B leaves.
+    m_leaf = torch.cat([b2.limbs_to_words(p), b2.limbs_to_words(d),
+                        b2.limbs_to_words(b)], dim=-1)
+    m_lvl1, m_levels, m_root = merkle.tree_build(m_leaf)
+    timer.mark("merkle #1 (P||D||B)")
+
+    # 9. Fiat-Shamir weights and the linear combination.
+    k1, k2, k3, k4 = (td.challenge_limbs(m_root, j) for j in (1, 2, 3, 4))
+    cp = td.lincomb_coeffs(k1, k2, su.h_pows)
+    cb = td.lincomb_coeffs(k3, k4, su.h_pows)
+    l_vals = plimbs.l_map(d, p, b, cp, cb)
+
+    # 10. Commit #2.
+    l_leaf = b2.limbs_to_words(l_vals)
+    l_lvl1, l_levels, l_root = merkle.tree_build(l_leaf)
+    timer.mark("linear combination + merkle #2")
+
+    # 11. Spot checks.
+    positions = td.pseudorandom_indices_dev(
+        l_root, precision, cfg.spot_checks, exclude_multiples_of=ext)
+    aug = torch.stack([positions, (positions + ext) % precision],
+                      dim=1).reshape(-1)
+    main_bundle = merkle.tree_bundle(m_leaf, m_lvl1, m_levels, aug)
+    lc_bundle = merkle.tree_bundle(l_leaf, l_lvl1, l_levels, positions)
+    timer.mark("spot-check bundles")
+
+    # 12. FRI on L (deg < 2*steps), reusing the L tree.
+    col_roots, col_bs, row_bs, final = fused.fri_commit(
+        l_vals, l_leaf, l_lvl1, l_levels, l_root, plan.fri_inv_pows,
+        su.schedule, su.eta_l, su.inv4_l, cfg.fri_queries, ext)
+    timer.mark("fri")
+
+    sections = [("m_root", m_root), ("l_root", l_root),
+                ("main_bundle", main_bundle), ("lc_bundle", lc_bundle)]
+    for r, (cr, cbnd, rbnd) in enumerate(zip(col_roots, col_bs, row_bs)):
+        sections += [(f"col_root{r}", cr), (f"col_b{r}", cbnd),
+                     (f"row_b{r}", rbnd)]
+    sections.append(("base_words", b2.limbs_to_words(final)))
+    return sections
+
+
+def _fetch(sections):
+    """ONE device-to-host copy of all sections -> {name: uint32 array}."""
+    flat = torch.cat([t.reshape(-1) for _, t in sections]).cpu().numpy()
+    flat = flat.astype(np.uint32)
+    out, off = {}, 0
+    for name, t in sections:
+        out[name] = flat[off:off + t.numel()].reshape(tuple(t.shape))
+        off += t.numel()
+    return out
+
+
+def _prep_section(name: str, arr: np.ndarray):
+    """Host decode of one fetched section into proof fragments."""
+    if name in ("m_root", "l_root") or name.startswith("col_root"):
+        return digest_words_to_bytes(arr)
+    if name == "main_bundle":
+        return merkle.bundle_to_branches(arr, 24)
+    if name == "base_words":
+        return [digest_words_to_bytes(r) for r in arr]
+    return merkle.bundle_to_branches(arr, 8)        # lc, col and row
+
+
+def _assemble_prepped(pre: dict, rounds: int):
+    """Reference-shaped proof object (SURVEY §A.8) from prepped sections."""
+    fri_proof = []
+    for r in range(rounds):
+        col, row = pre[f"col_b{r}"], pre[f"row_b{r}"]
+        branches = [[col[i]] + row[4 * i:4 * i + 4] for i in range(len(col))]
+        fri_proof.append([pre[f"col_root{r}"], branches])
+    fri_proof.append(pre["base_words"])
+    return [pre["m_root"], pre["l_root"], pre["main_bundle"],
+            pre["lc_bundle"], fri_proof]
+
+
+def mk_mimc_proof(inp: int, steps: int, round_constants, mesh=None,
+                  config: StarkConfig = REFERENCE, device=None,
+                  timings: dict = None):
+    """Full proof [m_root, l_root, main_branches, lc_branches, fri_proof]
+    (SURVEY §A.8), byte-identical to the reference transcript.
+
+    `device` None means "cuda", and then a CUDA device must be present:
+    the prover never falls back to the CPU on its own. `device="cpu"`
+    runs the plain PyTorch versions of the kernels. Pass a dict as
+    `timings` to receive per-stage seconds (each stage waits for the
+    device). `mesh` (the sharded path) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError("the sharded (mesh) path is not ported")
+    device = _resolve_device(device)
+    assert steps <= 2**32 // config.extension_factor
+    assert is_a_power_of_2(steps) and is_a_power_of_2(len(round_constants))
+    assert len(round_constants) < steps
+
+    timer = _StageTimer(timings, device)
+    inp = inp % MODULUS
+    trace_ints = mimc_model.trace_host(inp, steps, round_constants)
+    timer.mark("host trace")
+    su = _FusedSetup.get(steps, config, device)
+    k_ext = su.k_ext(round_constants)
+    trace = ints_to_tensor(trace_ints, device)
+    timer.mark("setup + trace upload")
+
+    sections = _prove_sections(su, trace, k_ext, inp, trace_ints[-1], timer)
+    fetched = _fetch(sections)
+    timer.mark("proof transfer")
+    pre = {name: _prep_section(name, arr) for name, arr in fetched.items()}
+    proof = _assemble_prepped(pre, len(su.schedule))
+    timer.mark("proof assembly")
+    timer.finish()
+    return proof

@@ -1,0 +1,258 @@
+"""The port's kernels (starks_tpu_torch.ops.plimbs) and the blocks built
+on them (ops/fused.py) against the XLA forms that tests/test_plimbs.py
+holds the Pallas kernels to. Every comparison is exact equality.
+
+On the CPU each wrapper runs its plain PyTorch version. The CUDA kernel
+bodies (csrc/kernels.cu) also compile as C++ with g++, so they are held
+against the plain versions here too; the launches themselves run only on
+a card (chip_smoke.py)."""
+
+import random
+import shutil
+import subprocess
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from starks_tpu.ops import fused as jfused
+from starks_tpu.ops import limbs as jfl
+from starks_tpu.utils.conversions import ints_to_limbs
+from starks_tpu_torch.ops import _build, fused, plimbs
+from starks_tpu_torch.ops import limbs as fl
+
+M = fl.MODULUS
+EDGE = [0, 1, 2, M - 1, M - 2, 2 ** 255, (1 << 240) - 1]
+_add, _sub, _mul = jax.jit(jfl.add), jax.jit(jfl.sub), jax.jit(jfl.mul)
+
+
+def _rand(n, seed, edge=False):
+    """(JAX limbs [n, 16], port tensor [n, 8]) of the same seeded values."""
+    r = random.Random(seed)
+    vals = [r.randrange(M) for _ in range(n)]
+    if edge:
+        vals[:len(EDGE)] = EDGE
+    limbs = ints_to_limbs(vals)
+    return jnp.asarray(limbs), fl.from_jax_limbs(limbs)
+
+
+def _same(port, jax_arr):
+    return np.array_equal(fl.to_jax_limbs(port), np.asarray(jax_arr))
+
+
+# -- A1-A6 plain versions against the XLA compositions --------------------
+
+@pytest.mark.parametrize("t", [0, 3, 7])
+def test_dif_stage_matches_xla(t):
+    n = 256
+    jx, x = _rand(n, 1, edge=True)
+    jtab, tab = _rand(n, 2)
+    tw = jfused._stage_twiddles(jtab, t, n // 2)
+    a, b = jx[:n // 2], jx[n // 2:]
+    want = jnp.stack([_add(a, b), _mul(_sub(a, b), tw)], axis=1)
+    assert _same(plimbs.dif_stage(x, tab, t), want.reshape(n, 16))
+
+
+@pytest.mark.parametrize("t", [0, 3, 7])
+def test_dit_stage_matches_xla(t):
+    n = 256
+    jx, x = _rand(n, 3, edge=True)
+    jtab, tab = _rand(n, 4)
+    tw = jfused._stage_twiddles(jtab, t, n // 2)
+    pairs = jx.reshape(n // 2, 2, 16)
+    wb = _mul(tw, pairs[:, 1])
+    want = jnp.concatenate([_add(pairs[:, 0], wb), _sub(pairs[:, 0], wb)])
+    assert _same(plimbs.dit_stage(x, tab, t), want)
+
+
+def test_scale_matches_xla():
+    jx, x = _rand(256, 5, edge=True)
+    js, s = _rand(1, 6)
+    want = _mul(jx, jnp.broadcast_to(js, jx.shape))
+    assert _same(plimbs.scale(x, s[0]), want)
+
+
+def test_db_map_matches_xla():
+    n, ext = 512, 8
+    jp, p = _rand(n, 20, edge=True)
+    jxs, xs = _rand(n, 21)
+    jk, k = _rand(64, 22)
+    jz, z = _rand(ext, 23)
+    jiz2, iz2 = _rand(n, 24)
+    (jlast, last), (jslope, slope), (jia, ia) = (_rand(1, s)
+                                                 for s in (25, 26, 27))
+    c = _sub(_sub(jnp.roll(jp, -ext, axis=0), jax.jit(jfl.cube)(jp)),
+             jnp.tile(jk, (n // 64, 1)))
+    want_d = _mul(_mul(c, _sub(jxs, jlast)), jnp.tile(jz, (n // ext, 1)))
+    i_ev = _add(jnp.broadcast_to(jia, jxs.shape),
+                _mul(jnp.broadcast_to(jslope, jxs.shape), jxs))
+    want_b = _mul(_sub(jp, i_ev), jiz2)
+    d, b = plimbs.db_map(p, xs, k, z, iz2, last[0], slope[0], ia[0], ext)
+    assert _same(d, want_d) and _same(b, want_b)
+
+
+def test_l_map_matches_xla():
+    n, ext = 256, 8
+    (jd, d), (jp, p), (jb, b) = (_rand(n, s, edge=True)
+                                 for s in (30, 31, 32))
+    (jcp, cp), (jcb, cb) = _rand(ext, 33), _rand(ext, 34)
+    want = _add(jd, _add(_mul(jp, jnp.tile(jcp, (n // ext, 1))),
+                         _mul(jb, jnp.tile(jcb, (n // ext, 1)))))
+    assert _same(plimbs.l_map(d, p, b, cp, cb), want)
+
+
+def test_fold4_matches_fri_fold():
+    from starks_tpu.ops import ntt as ntt_mod
+    from starks_tpu.ops.fri_fold import fold4 as jfold4
+    from starks_tpu.utils import hostfield as hf
+    from starks_tpu.utils.conversions import int_to_limbs
+    from starks_tpu_torch.utils.conversions import int_to_tensor
+    n = 1024
+    G2 = pow(7, (M - 1) // n, M)
+    dom = ntt_mod.get_domain(n, G2)
+    jv, v = _rand(n, 40, edge=True)
+    (jsx, sx) = _rand(1, 41)
+    eta, inv4 = pow(G2, n // 4, M), hf.inv(4)
+    want = jax.jit(jfold4)(jv, dom.powers, jnp.asarray(int_to_limbs(eta)),
+                           jsx[0], jnp.asarray(int_to_limbs(inv4)))
+    inv_pows = fused._inverse_order(fused.power_table(G2, n))[:n // 4]
+    got = plimbs.fold4(v, inv_pows, sx[0], int_to_tensor(eta),
+                       int_to_tensor(inv4))
+    assert _same(got, want)
+
+
+# -- NTT, LDE and the plan tables ------------------------------------------
+
+def test_ntt_dif_dit_match_fused():
+    n = 512
+    g = pow(7, (M - 1) // n, M)
+    table = jfused._power_table_np(g, n)
+    tw_stack = jnp.asarray(jfused._stacked_twiddles(table))
+    jx, x = _rand(n, 50)
+    port_table = fl.from_jax_limbs(table)
+    assert port_table.equal(fused.power_table(g, n))
+    assert _same(fused.ntt_dif(x, port_table),
+                 jax.jit(jfused.ntt_dif)(jx, tw_stack))
+    assert _same(fused.ntt_dit(x, port_table),
+                 jax.jit(jfused.ntt_dit)(jx, tw_stack))
+
+
+def _plan_args(steps, rounds=2, ext=8):
+    precision = steps * ext
+    G2 = pow(7, (M - 1) // precision, M)
+    return steps, precision, pow(G2, ext, M), G2, rounds
+
+
+def test_plan_tables_match_jax():
+    args = _plan_args(64)
+    jplan = jfused.FusedPlan.get(*args, pallas=True)    # plain tables
+    plan = fused.FusedPlan(*args, "cpu")
+    assert _same(plan.xs_big, jplan.xs_big)
+    assert _same(plan.inv_small, jplan.tw_inv_small)
+    assert _same(plan.n_inv_small[None], jplan.n_inv_small[None])
+    assert _same(plan.fri_inv_pows.reshape(-1, 8),
+                 jplan.fri_inv_pows.reshape(-1, 16))
+
+
+def test_lde_matches_lde_fused():
+    args = _plan_args(64)
+    jplan = jfused.FusedPlan.get(*args)                 # stacked twiddles
+    plan = fused.FusedPlan(*args, "cpu")
+    jtrace, trace = _rand(64, 51)
+    want = jax.jit(jfused.lde_fused)(jtrace, jplan.tw_inv_small,
+                                     jplan.n_inv_small, jplan.tw_fwd_big)
+    got = fused.lde(trace, plan.inv_small, plan.n_inv_small, plan.xs_big)
+    assert _same(got, want)
+
+
+def test_fri_round_schedule_matches_jax():
+    for precision, maxdeg in [(512, 128), (2 ** 19, 2 ** 17), (64, 16)]:
+        assert (fused.fri_round_schedule(precision, maxdeg, 16)
+                == jfused.fri_round_schedule(precision, maxdeg, 16))
+
+
+# -- the CUDA kernel bodies, compiled for the host --------------------------
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """csrc/kernels.cu built by g++: the kernel bodies run as host loops
+    behind the same C interface."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found")
+    out = tmp_path_factory.mktemp("host_kernels") / "libhost_kernels.so"
+    subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2",
+                    "-Wno-unknown-pragmas", "-shared", "-fPIC",
+                    str(_build.CSRC / "kernels.cu"), "-o", str(out)],
+                   check=True)
+    return _build.bind(Path(out))
+
+
+def _host_cases():
+    n = 256
+    x = _rand(n, 60, edge=True)[1]
+    tab, p, xs, iz2 = (_rand(n, s)[1] for s in (61, 62, 63, 64))
+    d, b = _rand(n, 65)[1], _rand(n, 66)[1]
+    k, z, cp, cb = (_rand(ln, s)[1] for ln, s in
+                    ((64, 67), (8, 68), (8, 69), (8, 70)))
+    ip = _rand(n // 4, 71)[1]
+    s1, s2, s3 = (_rand(1, s)[1][0] for s in (72, 73, 74))
+    q = n // 4
+    return {
+        "dif_stage": (plimbs.dif_stage_plain(x, tab, 2),
+                      [x, tab], [n, 2], (n, 8)),
+        "dit_stage": (plimbs.dit_stage_plain(x, tab, 5),
+                      [x, tab], [n, 5], (n, 8)),
+        "scale": (plimbs.scale_plain(x, s1), [x, s1], [n], (n, 8)),
+        "db_map": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
+                   [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
+                   (n, 8), (n, 8)),
+        "l_map": (plimbs.l_map_plain(d, p, b, cp, cb),
+                  [d, p, b, cp, 8, cb, 8], [n], (n, 8)),
+        "fold4": (plimbs.fold4_plain(x, ip, s1, s2, s3),
+                  [x, ip, s1, s2, s3], [q], (q, 8)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(plimbs.LAUNCHES))
+def test_kernel_body_matches_plain(host_kernels, name):
+    want, ins, ints, *out_shapes = _host_cases()[name]
+    outs = [torch.empty(s, dtype=torch.int32) for s in out_shapes]
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in ins + outs] + ints + [None]
+    assert getattr(host_kernels, "starks_" + name)(*args) == 0
+    want = want if isinstance(want, tuple) else (want,)
+    assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+# -- dispatch ---------------------------------------------------------------
+
+def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
+    plimbs.reset_launches()
+    x = _rand(64, 80)[1]
+    plimbs.scale(x, x[0])
+    plimbs.dif_stage(x, x, 0)
+    assert set(plimbs.LAUNCHES.values()) == {0}
+
+
+def test_wrappers_raise_on_other_devices():
+    x = torch.empty((64, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        plimbs.scale(x, x[0])
+    with pytest.raises(ValueError):
+        plimbs.scale(_rand(64, 81)[1].to(torch.int64), x[0])
+
+
+def test_wrappers_reject_bad_arguments():
+    x = _rand(64, 82)[1]
+    with pytest.raises(ValueError):
+        plimbs.dif_stage(x, x, 6)                 # stages are 0..5
+    with pytest.raises(ValueError):
+        plimbs.dit_stage(x[:48], x, 0)            # not a power of two
+    with pytest.raises(ValueError):
+        plimbs.l_map(x, x, x, x[:0], x[:8])       # empty periodic table
+    with pytest.raises(ValueError):
+        plimbs.db_map(x, x, x, x[:8], x, x[0], x[0], x[0], 64)   # shift
