@@ -9,21 +9,36 @@ Phases (any failure exits non-zero and prints no result):
      compiler's register report;
   2. each kernel against its plain PyTorch version on seeded random
      inputs (plus edge values) at the shapes of a 2^16-step proof, the
-     NTT stages at their first, middle and last stage, exact equality;
-     time each (CUDA events, median) beside its plain version and its
-     bound;
+     NTT stages at their first, middle and last stage, the elementwise
+     ops (mul, add, sub) with full, 8-periodic and constant operands on
+     either side, exact equality; time each (CUDA events, median) beside
+     its plain version and its bound;
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
      port's verifier, with one flipped byte rejected; per-stage times;
-     one more proof under torch.profiler: CUDA launches, device busy
-     share, device time of the field kernels;
-  5. every kernel's launches in phases 3-4 (each must be > 0), one JSON
-     line of kernel rows, and the result line.
+  5. general AIR proofs (benchmark config 3): fib-square at 2^10 steps on
+     the card equal to the CPU path byte for byte; fib-square at 2^13 and
+     2^16 accepted, with a changed boundary value and a flipped leaf byte
+     rejected, the output equal to fib_square_output, per-stage times,
+     launches per proof; the declarative form equal to the closure form
+     at 2^13; MiMC written as an AIR at 2^13 accepted with the output of
+     mimc_forward (the path of the cube kernel);
+  6. one more MiMC 2^16 and fib-square 2^13 and 2^16 proof each under
+     torch.profiler, after all timed proofs: CUDA launches, device busy
+     share against the steady stage-timed wall time, device time of the
+     field kernels;
+  7. every kernel's launches on each main path: the steady MiMC 2^16,
+     fib-square 2^13 and 2^16 proofs and the MiMC-as-AIR proof, each
+     counted alone (counts set to 0 just before it, read just after);
+     each kernel > 0 on every path that runs it; one JSON line of kernel
+     rows, each with the count of its own main path and the counts of
+     every path, and the result line.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
 
+import copy
 import json
 import re
 import statistics
@@ -36,6 +51,8 @@ CONSTS = [(i ** 7) ^ 42 for i in range(64)]
 INP = 3
 SMALL_STEPS = 2 ** 13
 BIG_STEPS = 2 ** 16
+AIR_CHECK_STEPS = 2 ** 10     # card against the CPU path
+AIR_CONSTS = CONSTS[:16]      # MiMC as an AIR: one 16-entry column
 EXT = 8
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
@@ -62,6 +79,23 @@ REPLACES = {
     "db_map": "starks_tpu/ops/plimbs.py:181",
     "l_map": "starks_tpu/ops/plimbs.py:203",
     "fold4": "starks_tpu/ops/plimbs.py:212",
+    "mul": "starks_tpu/ops/plimbs.py:149",
+    "add": "starks_tpu/ops/plimbs.py:279",
+    "sub": "starks_tpu/ops/plimbs.py:284",
+    "cube": "starks_tpu/ops/plimbs.py:289",
+}
+# The main paths, each counted alone, and the kernels each must launch.
+# A kernel's row reports the count of the first path here that runs it.
+NTT_FRI = ["dif_stage", "dit_stage", "scale", "fold4"]
+FIB = f"fib-square {SMALL_STEPS}"
+FIB_BIG = f"fib-square {BIG_STEPS}"
+MIMC = f"MiMC {BIG_STEPS}"
+MIMC_AIR = f"MiMC-as-AIR {SMALL_STEPS}"
+PATH_KERNELS = {
+    FIB: NTT_FRI + ["mul", "add", "sub"],
+    FIB_BIG: NTT_FRI + ["mul", "add", "sub"],
+    MIMC: NTT_FRI + ["db_map", "l_map"],
+    MIMC_AIR: NTT_FRI + ["mul", "add", "sub", "cube"],
 }
 
 
@@ -115,8 +149,9 @@ def int_ops_per_s(device) -> float:
 def kernel_cases(steps, device):
     """(name, wrapper, plain, [args, ...], bytes, ops) for each kernel at
     the shapes a `steps`-step proof gives it, with edge values up front.
-    Every args tuple is checked; the first is timed and bounded. The NTT
-    stages are checked at their first, middle and last stage."""
+    Every args tuple is checked and timed; the first is bounded and goes
+    into the kernel's row. The NTT stages are checked at their first,
+    middle and last stage."""
     import torch
     from starks_tpu_torch.ops import plimbs
     gen = torch.Generator().manual_seed(SEED)
@@ -131,6 +166,8 @@ def kernel_cases(steps, device):
 
     def one():
         return rand_elems(1, gen, device)[0]
+
+    const = rand_elems(1, gen, device)          # [1, 8], read periodically
 
     x_small, tw_small = arr(steps), arr(steps)
     x_big, tw_big = arr(n_big), arr(n_big)
@@ -167,6 +204,17 @@ def kernel_cases(steps, device):
         ("fold4", plimbs.fold4, plimbs.fold4_plain,
          [(x_big, ip, sx, eta, inv4)], ELEM * (n_big + 2 * q + 3),
          q * (6 * OPS_MUL + 11 * OPS_ADD)),
+        ("mul", plimbs.mul, plimbs.mul_plain,
+         [(x_big, p), (d, zni), (const, xs)], ELEM * 3 * n_big,
+         n_big * OPS_MUL),
+        ("add", plimbs.add, plimbs.add_plain,
+         [(x_big, p), (const, xs), (d, cp)], ELEM * 3 * n_big,
+         n_big * OPS_ADD),
+        ("sub", plimbs.sub, plimbs.sub_plain,
+         [(x_big, p), (zni, xs), (b, const)], ELEM * 3 * n_big,
+         n_big * OPS_ADD),
+        ("cube", plimbs.cube, plimbs.cube_plain, [(x_big,)],
+         ELEM * 2 * n_big, n_big * 2 * OPS_MUL),
     ]
 
 
@@ -228,7 +276,25 @@ def phase_kernels(steps, device, reps=20, plain_reps=3):
               f"kernel {row['ms']} ms, plain {row['plain_ms']} ms, "
               f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})",
               flush=True)
+        if len(cases) > 1:
+            print("    kernel ms in the other cases: " + ", ".join(
+                str(time_ms(lambda a=a: wrapper(*a), reps, device))
+                for a in cases[1:]), flush=True)
     return rows
+
+
+def counted(run):
+    """`run()` with every launch count set to 0 just before it: its result
+    and the counts read just after."""
+    from starks_tpu_torch.ops import plimbs
+    plimbs.reset_launches()
+    out = run()
+    return out, dict(plimbs.LAUNCHES)
+
+
+def print_launches(launches):
+    print("  launches per proof: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if v), flush=True)
 
 
 def phase_small_proof(steps, device):
@@ -250,12 +316,13 @@ def phase_small_proof(steps, device):
 
 
 def phase_big_proof(steps, device):
-    """Phase 4: a large proof verifies; a flipped byte is rejected."""
+    """Phase 4: a large proof verifies; a flipped byte is rejected.
+    Returns the steady proof's wall time and launch counts."""
     import starks_tpu_torch as stt
     first, steady = {}, {}
     stt.mk_mimc_proof(INP, steps, CONSTS, device=device, timings=first)
-    proof = stt.mk_mimc_proof(INP, steps, CONSTS, device=device,
-                              timings=steady)
+    proof, launches = counted(lambda: stt.mk_mimc_proof(
+        INP, steps, CONSTS, device=device, timings=steady))
     out = stt.mimc_forward(INP, steps, CONSTS)
     t0 = time.perf_counter()
     check(stt.verify_mimc_proof(INP, steps, CONSTS, out, proof),
@@ -264,37 +331,141 @@ def phase_big_proof(steps, device):
     leaf = bytearray(proof[2][0][0])
     leaf[0] ^= 1
     proof[2][0][0] = bytes(leaf)
-    try:
-        stt.verify_mimc_proof(INP, steps, CONSTS, out, proof)
-    except stt.VerificationError:
-        pass
-    else:
-        check(False, "verifier accepted a tampered proof")
+    expect_rejected(
+        lambda q: stt.verify_mimc_proof(INP, steps, CONSTS, out, q), proof,
+        "a tampered proof")
     print(f"  {steps}-step proof verified in {verify_s:.3f} s; tampered "
           f"proof rejected", flush=True)
+    print_launches(launches)
+    print_stages(first, steady)
+    return steady["total"], launches
+
+
+def print_stages(first, steady):
     print(f"  first call (with setup): total {first['total']:.4f} s",
           flush=True)
     for stage, sec in steady.items():
         print(f"    {stage:<32s} {sec * 1e3:10.3f} ms", flush=True)
-    profile_proof(steps, device, steady["total"])
 
 
-# The six field kernels, as the profiler names them (mangled or not).
+def expect_rejected(verify, proof, what):
+    import starks_tpu_torch as stt
+    try:
+        verify(proof)
+    except stt.VerificationError:
+        return
+    check(False, f"verifier accepted {what}")
+
+
+def phase_air(device):
+    """Phase 5: general AIR proofs through prove_air and verify_air.
+    Returns the steady fib-square wall times by steps, and the launch
+    counts of each counted path."""
+    import starks_tpu_torch as stt
+    from starks_tpu_torch.models import fib_square as fib
+    from starks_tpu_torch.models.mimc import mimc_air, mimc_forward
+    air = fib.fib_square_air()
+
+    t0 = time.perf_counter()
+    got = stt.prove_air(air, [1, 1], AIR_CHECK_STEPS, device=device)
+    t1 = time.perf_counter()
+    want = stt.prove_air(air, [1, 1], AIR_CHECK_STEPS, device="cpu")
+    t2 = time.perf_counter()
+    check(got == want, f"fib-square {AIR_CHECK_STEPS}-step proof on the "
+          f"card differs from the CPU path's")
+    print(f"  fib-square {AIR_CHECK_STEPS}-step proof on the card equals "
+          f"the CPU path's byte for byte (card {t1 - t0:.3f} s incl. "
+          f"setup, CPU {t2 - t1:.3f} s)", flush=True)
+
+    proofs, steady_s, launches = {}, {}, {}
+    for path, steps in ((FIB, SMALL_STEPS), (FIB_BIG, BIG_STEPS)):
+        first, steady = {}, {}
+        stt.prove_air(air, [1, 1], steps, device=device, timings=first)
+        proof, launches[path] = counted(lambda: stt.prove_air(
+            air, [1, 1], steps, device=device, timings=steady))
+        t0 = time.perf_counter()
+        check(stt.verify_air(air, steps, proof),
+              f"verifier rejected the fib-square {steps}-step proof")
+        verify_s = time.perf_counter() - t0
+        check(dict(proof[5])[(steps - 1, 1)]
+              == fib.fib_square_output(1, 1, steps),
+              "fib-square output boundary differs from fib_square_output")
+        bad = copy.deepcopy(proof)
+        bad[5] = [(k, (v + 1) % fib.MODULUS) if k == (steps - 1, 1)
+                  else (k, v) for k, v in bad[5]]
+        expect_rejected(lambda q: stt.verify_air(air, steps, q), bad,
+                        "a changed output boundary value")
+        bad = copy.deepcopy(proof)
+        leaf = bytearray(bad[2][0][0])
+        leaf[0] ^= 1
+        bad[2][0][0] = bytes(leaf)
+        expect_rejected(lambda q: stt.verify_air(air, steps, q), bad,
+                        "a flipped leaf byte")
+        print(f"  fib-square {steps}-step proof verified in {verify_s:.3f} "
+              f"s, output equals fib_square_output; changed boundary and "
+              f"flipped leaf byte rejected", flush=True)
+        print_launches(launches[path])
+        print_stages(first, steady)
+        steady_s[steps] = steady["total"]
+        proofs[steps] = proof
+
+    d_proof = stt.prove_air(fib.fib_square_air_declarative(), [1, 1],
+                            SMALL_STEPS, device=device)
+    check(d_proof == proofs[SMALL_STEPS],
+          "the declarative fib-square proof differs from the closure form's")
+    print(f"  declarative fib-square {SMALL_STEPS}-step proof equals the "
+          f"closure form's byte for byte", flush=True)
+
+    m_air = mimc_air(AIR_CONSTS)
+    t0 = time.perf_counter()
+    proof, launches[MIMC_AIR] = counted(lambda: stt.prove_air(
+        m_air, [INP], SMALL_STEPS, device=device))
+    t1 = time.perf_counter()
+    check(stt.verify_air(m_air, SMALL_STEPS, proof),
+          "verifier rejected the MiMC-as-AIR proof")
+    check(dict(proof[5])[(SMALL_STEPS - 1, 0)]
+          == mimc_forward(INP, SMALL_STEPS, AIR_CONSTS),
+          "MiMC-as-AIR output boundary differs from mimc_forward")
+    print(f"  MiMC as an AIR, {SMALL_STEPS} steps: verified, output equals "
+          f"mimc_forward ({t1 - t0:.3f} s incl. setup)", flush=True)
+    print_launches(launches[MIMC_AIR])
+    return steady_s, launches
+
+
+def phase_profiles(device, mimc_steady_s, air_steady_s):
+    """Phase 6: one more proof of each timed kind under torch.profiler.
+    It runs after every stage-timed proof, so no timing follows a
+    profiler run."""
+    import starks_tpu_torch as stt
+    from starks_tpu_torch.models import fib_square as fib
+    print(f"  MiMC {BIG_STEPS} steps:", flush=True)
+    profile_proof(lambda: stt.mk_mimc_proof(INP, BIG_STEPS, CONSTS,
+                                            device=device),
+                  device, mimc_steady_s)
+    air = fib.fib_square_air()
+    for steps, steady in air_steady_s.items():
+        print(f"  fib-square {steps} steps:", flush=True)
+        profile_proof(lambda: stt.prove_air(air, [1, 1], steps,
+                                            device=device),
+                      device, steady)
+
+
+# The field kernels, as the profiler names them (mangled or not).
 FIELD_KERNEL = re.compile(
-    r"^(?:void )?(?:_Z\d+)?(dif|dit|scale|db|l|fold4)_kernel(?:\(|P|$)")
+    r"^(?:void )?(?:_Z\d+)?(dif|dit|scale|db|l|fold4|mul|add|sub|cube)"
+    r"_kernel(?:\(|P|$)")
 
 
-def profile_proof(steps, device, steady_s):
-    """One more proof under torch.profiler: the CUDA kernels it launched,
-    their device time, that time's share of the steady (stage-timed) wall
-    time, and the device time of the six field kernels."""
+def profile_proof(run, device, steady_s):
+    """One more proof (`run`) under torch.profiler: the CUDA kernels it
+    launched, their device time, that time's share of the steady
+    (stage-timed) wall time, and the device time of the field kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    import starks_tpu_torch as stt
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        stt.mk_mimc_proof(INP, steps, CONSTS, device=device)
+        run()
         torch.cuda.synchronize(device)
     launches, device_us, field_us = 0, 0.0, {}
     for evt in prof.events():
@@ -318,13 +489,29 @@ def profile_proof(steps, device, steady_s):
           flush=True)
 
 
+def phase_launches(rows, launches):
+    """Phase 7: each path launched every kernel it runs; each kernel row
+    gets the count of its own main path and those of every path."""
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(launches[path][name] > 0,
+                  f"kernel {name} never ran on the {path} path")
+    for name, row in rows.items():
+        row["path"] = next(p for p, ks in PATH_KERNELS.items() if name in ks)
+        row["launches"] = launches[row["path"]][name]
+        row["launches_by_path"] = {p: launches[p][name] for p in PATH_KERNELS}
+        print(f"  {name:<10s} " + ", ".join(
+            f"{p} {n}" for p, n in row["launches_by_path"].items()),
+            flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from starks_tpu_torch.ops import _build, plimbs
+        from starks_tpu_torch.ops import _build
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable: {exc}",
               file=sys.stderr)
@@ -347,17 +534,20 @@ def main() -> int:
           f"shapes", flush=True)
     rows = phase_kernels(BIG_STEPS, device)
 
-    plimbs.reset_launches()
     print("phase 3: main path, small proof", flush=True)
     phase_small_proof(SMALL_STEPS, device)
     print("phase 4: main path, large proof", flush=True)
-    phase_big_proof(BIG_STEPS, device)
-    launches = dict(plimbs.LAUNCHES)
+    mimc_steady_s, mimc_launches = phase_big_proof(BIG_STEPS, device)
 
-    print("phase 5: launches on the main path", flush=True)
-    for name, row in rows.items():
-        row["launches"] = launches[name]
-        check(launches[name] > 0, f"kernel {name} never ran on the main path")
+    print("phase 5: general AIR proofs", flush=True)
+    air_steady_s, launches = phase_air(device)
+    launches[MIMC] = mimc_launches
+
+    print("phase 6: profiled proofs", flush=True)
+    phase_profiles(device, mimc_steady_s, air_steady_s)
+
+    print("phase 7: launches on the main paths", flush=True)
+    phase_launches(rows, launches)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// The six field kernels of the single-device MiMC proof, for sm_90a.
+// The field kernels of the MiMC and general AIR proofs, for sm_90a.
 //
 // Each replaces one Pallas kernel of starks_tpu/ops/plimbs.py and
 // computes what that kernel computes; the TPU's block structure is not
@@ -143,6 +143,35 @@ KERNEL fold4_kernel(const Fe* __restrict__ values, const Fe* __restrict__ ip,
   }
 }
 
+// A7/A8: elementwise field ops with periodic operands (replace
+// _mul_kernel via mul_t and mul_tab_t, and _add_kernel, _sub_kernel,
+// _cube_kernel via _ew). Each operand is read as x[i % len]: a full
+// array (len = n), a periodic table (len = 8, or a constant column's
+// extension) or a constant (len = 1), so no tiled or broadcast copy
+// is ever built.
+KERNEL mul_kernel(const Fe* __restrict__ a, uint32_t a_len,
+                  const Fe* __restrict__ b, uint32_t b_len,
+                  Fe* __restrict__ out, uint32_t n) {
+  FOR_EACH(i, n) { out[i] = field::mul(a[i % a_len], b[i % b_len]); }
+}
+
+KERNEL add_kernel(const Fe* __restrict__ a, uint32_t a_len,
+                  const Fe* __restrict__ b, uint32_t b_len,
+                  Fe* __restrict__ out, uint32_t n) {
+  FOR_EACH(i, n) { out[i] = field::add(a[i % a_len], b[i % b_len]); }
+}
+
+KERNEL sub_kernel(const Fe* __restrict__ a, uint32_t a_len,
+                  const Fe* __restrict__ b, uint32_t b_len,
+                  Fe* __restrict__ out, uint32_t n) {
+  FOR_EACH(i, n) { out[i] = field::sub(a[i % a_len], b[i % b_len]); }
+}
+
+KERNEL cube_kernel(const Fe* __restrict__ a, Fe* __restrict__ out,
+                   uint32_t n) {
+  FOR_EACH(i, n) { out[i] = field::cube(a[i]); }
+}
+
 #define F(ptr) ((const Fe*)(ptr))
 #define W(ptr) ((Fe*)(ptr))
 
@@ -185,6 +214,25 @@ int starks_fold4(const void* values, const void* ip, const void* sx,
                  void* stream) {
   LAUNCH(fold4_kernel, q, stream, F(values), F(ip), F(sx), F(eta), F(inv4),
          W(out), q);
+}
+
+int starks_mul(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
+               void* out, uint32_t n, void* stream) {
+  LAUNCH(mul_kernel, n, stream, F(a), a_len, F(b), b_len, W(out), n);
+}
+
+int starks_add(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
+               void* out, uint32_t n, void* stream) {
+  LAUNCH(add_kernel, n, stream, F(a), a_len, F(b), b_len, W(out), n);
+}
+
+int starks_sub(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
+               void* out, uint32_t n, void* stream) {
+  LAUNCH(sub_kernel, n, stream, F(a), a_len, F(b), b_len, W(out), n);
+}
+
+int starks_cube(const void* a, void* out, uint32_t n, void* stream) {
+  LAUNCH(cube_kernel, n, stream, F(a), W(out), n);
 }
 
 }  // extern "C"

@@ -21,3 +21,26 @@ def trace_host(inp: int, steps: int, round_constants) -> list:
         trace.append((trace[-1] ** 3
                       + round_constants[i % len(round_constants)]) % MODULUS)
     return trace
+
+
+def _air_step(state, consts):
+    return [(state[0] ** 3 + consts[0]) % MODULUS]
+
+
+def _air_transition(cur, nxt, consts, ops):
+    return [ops.sub(nxt[0], ops.add(ops.cube(cur[0]), consts[0]))]
+
+
+def _air_boundaries(steps):
+    return [(0, 0), (steps - 1, 0)]
+
+
+def mimc_air(round_constants):
+    """MiMC as a general AIR: width 1, one periodic constant column,
+    x' = x^3 + k, the input and the output pinned. The same AIR as the
+    JAX package's AIR tests build (tests/_air_impl.py); its proof runs
+    the cube kernel."""
+    from ..air import AIR
+    return AIR(width=1, step_fn=_air_step, transition=_air_transition,
+               num_constraints=1, constants=[list(round_constants)],
+               boundary_points=_air_boundaries)

@@ -31,6 +31,10 @@ SIGNATURES = {
                       _U, _P],
     "starks_l_map": [_P, _P, _P, _P, _U, _P, _U, _P, _U, _P],
     "starks_fold4": [_P, _P, _P, _P, _P, _P, _U, _P],
+    "starks_mul": [_P, _U, _P, _U, _P, _U, _P],
+    "starks_add": [_P, _U, _P, _U, _P, _U, _P],
+    "starks_sub": [_P, _U, _P, _U, _P, _U, _P],
+    "starks_cube": [_P, _P, _U, _P],
 }
 
 _LIB = None

@@ -1,4 +1,5 @@
-"""The six field kernels of the MiMC proof, each beside its plain version.
+"""The field kernels of the MiMC and AIR proofs, each beside its plain
+version.
 
 Counterpart of the Pallas kernels of `starks_tpu/ops/plimbs.py`. Each
 wrapper takes [n, 8] int32 field tensors (ops/limbs.py). Given CUDA
@@ -10,10 +11,10 @@ counts each wrapper's kernel launches.
 
 Bounds on the card (32-byte elements, n elements per array): bytes over
 3.35 TB/s against 32-bit integer multiply-adds over the card's peak
-rate, 148 per modmul (chip_smoke.py). The NTT stages, scale and the L
-map are bound by their bytes; the D/B map and fold4, with 6 modmuls per
-element, by their operations. PERF.md gives each kernel's time beside
-its bound.
+rate, 148 per modmul (chip_smoke.py). The NTT stages, scale, the L map
+and the elementwise ops (mul, add, sub, cube) are bound by their bytes;
+the D/B map and fold4, with 6 modmuls per element, by their operations.
+PERF.md gives each kernel's time beside its bound.
 """
 
 import torch
@@ -25,7 +26,8 @@ NUM_WORDS = fl.NUM_WORDS
 L16 = fl.to_limbs16
 
 LAUNCHES = dict.fromkeys(
-    ["dif_stage", "dit_stage", "scale", "db_map", "l_map", "fold4"], 0)
+    ["dif_stage", "dit_stage", "scale", "db_map", "l_map", "fold4", "mul",
+     "add", "sub", "cube"], 0)
 
 
 def reset_launches():
@@ -282,4 +284,92 @@ def fold4(values, ip, sx, eta, inv4):
     out = torch.empty((q, NUM_WORDS), dtype=torch.int32,
                       device=values.device)
     _launch("fold4", values.device, values, ip, sx, eta, inv4, out, q)
+    return out
+
+
+# -- A7/A8: elementwise ops with periodic operands ----------------------
+
+def _periodic16(x, n: int):
+    """[L, 8] operand read as x[i % L] for i < n, as [n, 16] limbs."""
+    limbs = L16(x)
+    if x.shape[0] == n:
+        return limbs
+    return limbs[torch.arange(n, device=x.device) % x.shape[0]]
+
+
+def _binary_plain(op16, a, b):
+    n = max(a.shape[0], b.shape[0])
+    return fl.from_limbs16(op16(_periodic16(a, n), _periodic16(b, n)))
+
+
+def mul_plain(a, b):
+    return _binary_plain(fl.mul16, a, b)
+
+
+def add_plain(a, b):
+    return _binary_plain(fl.add16, a, b)
+
+
+def sub_plain(a, b):
+    return _binary_plain(fl.sub16, a, b)
+
+
+def cube_plain(a):
+    return fl.cube(a)
+
+
+def _binary(name: str, plain, a, b):
+    _check_tables(a, b)
+    n = max(a.shape[0], b.shape[0])
+    if n % a.shape[0] or n % b.shape[0]:
+        raise ValueError(f"operand lengths {a.shape[0]} and {b.shape[0]} "
+                         f"must divide the output length {n}")
+    if not _on_card(a, b):
+        return plain(a, b)
+    out = torch.empty((n, NUM_WORDS), dtype=torch.int32, device=a.device)
+    _launch(name, a.device, a, a.shape[0], b, b.shape[0], out, n)
+    return out
+
+
+def mul(a, b):
+    """a * b over [n, 8], n = max(La, Lb), for operands a [La, 8] and
+    b [Lb, 8] read periodically (a[i % La], b[i % Lb]); each length
+    divides n. A full array, an 8-periodic table and a constant ([1, 8])
+    all take this one path, so no tiled or broadcast copy is built.
+
+    Replaces `_mul_kernel` (starks_tpu/ops/plimbs.py:149, launched by
+    `mul_t`, :252, and by `mul_tab_t` for a periodic table, :436).
+    Bound: bytes, 32 * (La + Lb + n): 96n for full operands, ~64n with a
+    table (one modmul per element, 148 multiply-adds, is below it)."""
+    return _binary("mul", mul_plain, a, b)
+
+
+def add(a, b):
+    """a + b with periodic operands, as in `mul`.
+
+    Replaces `_add_kernel` (starks_tpu/ops/plimbs.py:279, launched by
+    `add_t` through `_ew`, :301). Bound: bytes, 32 * (La + Lb + n)."""
+    return _binary("add", add_plain, a, b)
+
+
+def sub(a, b):
+    """a - b with periodic operands, as in `mul`. Either operand may be
+    the periodic one: a lowered constraint can put its constant first.
+
+    Replaces `_sub_kernel` (starks_tpu/ops/plimbs.py:284, launched by
+    `sub_t` through `_ew`, :301). Bound: bytes, 32 * (La + Lb + n)."""
+    return _binary("sub", sub_plain, a, b)
+
+
+def cube(a):
+    """a^3 over [n, 8].
+
+    Replaces `_cube_kernel` (starks_tpu/ops/plimbs.py:289, launched by
+    `cube_t` through `_ew`, :301). Bound: bytes, 64n, narrowly over its
+    two modmuls per element (296 multiply-adds)."""
+    _check_tables(a)
+    if not _on_card(a):
+        return cube_plain(a)
+    out = torch.empty_like(a)
+    _launch("cube", a.device, a, out, a.shape[0])
     return out

@@ -29,8 +29,8 @@ from .ops import plimbs
 from .ops import transcript_dev as td
 from .transcript import is_a_power_of_2
 from .utils import hostfield as hf
-from .utils.conversions import (digest_words_to_bytes, int_to_tensor,
-                                ints_to_tensor)
+from .utils.conversions import (NUM_WORDS, digest_words_to_bytes,
+                                int_to_tensor, ints_to_tensor)
 
 MODULUS = REFERENCE.modulus
 
@@ -131,8 +131,7 @@ def _prove_sections(su: _FusedSetup, trace, k_ext, inp: int, output: int,
     """The device part of a proof (post_trace_pl without pruning):
     returns the named sections, as int64 word tensors on the device."""
     plan = su.plan
-    cfg = su.config
-    precision, ext = su.precision, su.ext
+    ext = su.ext
 
     # 2-3. LDE.
     p = fused.lde(trace, plan.inv_small, plan.n_inv_small, plan.xs_big)
@@ -158,6 +157,17 @@ def _prove_sections(su: _FusedSetup, trace, k_ext, inp: int, output: int,
     cp = td.lincomb_coeffs(k1, k2, su.h_pows)
     cb = td.lincomb_coeffs(k3, k4, su.h_pows)
     l_vals = plimbs.l_map(d, p, b, cp, cb)
+    return _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
+                           timer)
+
+
+def _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
+                    timer: _StageTimer):
+    """Steps 10-12, shared by the MiMC and the AIR proof: commit L, the
+    spot-check bundles (main tree at x and g1 x, L tree at x), and FRI on
+    L. `su` is either proof's setup. Returns the named sections, as int64
+    word tensors on the device."""
+    cfg, precision, ext = su.config, su.precision, su.ext
 
     # 10. Commit #2.
     l_leaf = b2.limbs_to_words(l_vals)
@@ -175,7 +185,7 @@ def _prove_sections(su: _FusedSetup, trace, k_ext, inp: int, output: int,
 
     # 12. FRI on L (deg < 2*steps), reusing the L tree.
     col_roots, col_bs, row_bs, final = fused.fri_commit(
-        l_vals, l_leaf, l_lvl1, l_levels, l_root, plan.fri_inv_pows,
+        l_vals, l_leaf, l_lvl1, l_levels, l_root, su.plan.fri_inv_pows,
         su.schedule, su.eta_l, su.inv4_l, cfg.fri_queries, ext)
     timer.mark("fri")
 
@@ -199,12 +209,13 @@ def _fetch(sections):
     return out
 
 
-def _prep_section(name: str, arr: np.ndarray):
-    """Host decode of one fetched section into proof fragments."""
+def _prep_section(name: str, arr: np.ndarray, main_leaf_words: int):
+    """Host decode of one fetched section into proof fragments; a main
+    tree leaf is `main_leaf_words` words (8 per committed column)."""
     if name in ("m_root", "l_root") or name.startswith("col_root"):
         return digest_words_to_bytes(arr)
     if name == "main_bundle":
-        return merkle.bundle_to_branches(arr, 24)
+        return merkle.bundle_to_branches(arr, main_leaf_words)
     if name == "base_words":
         return [digest_words_to_bytes(r) for r in arr]
     return merkle.bundle_to_branches(arr, 8)        # lc, col and row
@@ -220,6 +231,20 @@ def _assemble_prepped(pre: dict, rounds: int):
     fri_proof.append(pre["base_words"])
     return [pre["m_root"], pre["l_root"], pre["main_bundle"],
             pre["lc_bundle"], fri_proof]
+
+
+def _finish_proof(sections, main_leaf_words: int, rounds: int,
+                  timer: _StageTimer):
+    """One device-to-host copy of the sections, then the host assembly
+    of the reference-shaped proof."""
+    fetched = _fetch(sections)
+    timer.mark("proof transfer")
+    pre = {name: _prep_section(name, arr, main_leaf_words)
+           for name, arr in fetched.items()}
+    proof = _assemble_prepped(pre, rounds)
+    timer.mark("proof assembly")
+    timer.finish()
+    return proof
 
 
 def mk_mimc_proof(inp: int, steps: int, round_constants, mesh=None,
@@ -250,10 +275,4 @@ def mk_mimc_proof(inp: int, steps: int, round_constants, mesh=None,
     timer.mark("setup + trace upload")
 
     sections = _prove_sections(su, trace, k_ext, inp, trace_ints[-1], timer)
-    fetched = _fetch(sections)
-    timer.mark("proof transfer")
-    pre = {name: _prep_section(name, arr) for name, arr in fetched.items()}
-    proof = _assemble_prepped(pre, len(su.schedule))
-    timer.mark("proof assembly")
-    timer.finish()
-    return proof
+    return _finish_proof(sections, 3 * NUM_WORDS, len(su.schedule), timer)

@@ -124,6 +124,32 @@ def test_fold4_matches_fri_fold():
     assert _same(got, want)
 
 
+# -- A7/A8 plain versions, with periodic operands ---------------------------
+
+def _operand(length, n, seed):
+    """(JAX limbs tiled to [n, 16], port operand [length, 8]): a full array,
+    a periodic table or a constant, as mul_tab_t and PallasOps.const
+    present them to the JAX kernels."""
+    ja, a = _rand(length, seed, edge=length >= len(EDGE))
+    return jnp.tile(ja, (n // length, 1)), a
+
+
+@pytest.mark.parametrize("la,lb", [(256, 256), (256, 8), (256, 1), (8, 256),
+                                   (1, 256), (8, 1)])
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_elementwise_matches_xla(op, la, lb):
+    n = max(la, lb)
+    ja, a = _operand(la, n, 90)
+    jb, b = _operand(lb, n, 91)
+    want = jax.jit(getattr(jfl, op))(ja, jb)
+    assert _same(getattr(plimbs, op)(a, b), want)
+
+
+def test_cube_matches_xla():
+    ja, a = _rand(256, 92, edge=True)
+    assert _same(plimbs.cube(a), jax.jit(jfl.cube)(ja))
+
+
 # -- NTT, LDE and the plan tables ------------------------------------------
 
 def test_ntt_dif_dit_match_fused():
@@ -214,6 +240,10 @@ def _host_cases():
                   [d, p, b, cp, 8, cb, 8], [n], (n, 8)),
         "fold4": (plimbs.fold4_plain(x, ip, s1, s2, s3),
                   [x, ip, s1, s2, s3], [q], (q, 8)),
+        "mul": (plimbs.mul_plain(x, cp), [x, n, cp, 8], [n], (n, 8)),
+        "add": (plimbs.add_plain(s1[None], p), [s1, 1, p, n], [n], (n, 8)),
+        "sub": (plimbs.sub_plain(z, xs), [z, 8, xs, n], [n], (n, 8)),
+        "cube": (plimbs.cube_plain(x), [x], [n], (n, 8)),
     }
 
 
@@ -256,3 +286,7 @@ def test_wrappers_reject_bad_arguments():
         plimbs.l_map(x, x, x, x[:0], x[:8])       # empty periodic table
     with pytest.raises(ValueError):
         plimbs.db_map(x, x, x, x[:8], x, x[0], x[0], x[0], 64)   # shift
+    with pytest.raises(ValueError):
+        plimbs.mul(x, x[:24])                     # 24 does not divide 64
+    with pytest.raises(ValueError):
+        plimbs.add(x, x[0])                       # a scalar is [1, 8]
