@@ -5,14 +5,24 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. print the card's name and power limit; build the CUDA kernels from
-     starks_tpu_torch/csrc/ into build/ and print the build time and the
-     compiler's register report;
-  2. each kernel against its plain PyTorch version on seeded random
-     inputs (plus edge values) at the shapes of a 2^16-step proof, the
-     NTT stages at their first, middle and last stage, the elementwise
-     ops (mul, add, sub) with full, 8-periodic and constant operands on
-     either side, exact equality; time each (CUDA events, median) beside
-     its plain version and its bound;
+     starks_tpu_torch/csrc/ into build/ and print the build time, the
+     compiler's register report and each kernel's IMAD-class instruction
+     count (cuobjdump -sass, where the toolkit has it);
+  2. each kernel against its plain PyTorch version, exact equality, on
+     seeded random inputs with structured ones up front (all-ones words,
+     p - 1, p - 2, 2^255) at the shapes of a 2^16-step proof: the NTT
+     stages at their first, middle and last stage; the DIF transform at
+     2^13 and 2^16 points for the chosen stages per pass and one that
+     leaves a short last pass; fold4 at every FRI round's shape and
+     shift; the elementwise ops with full, 8-periodic and constant
+     operands on either side; mul on 2^20 products led by edge pairs
+     that reach every carry path of the modmul. Each kernel's device
+     time per launch (CUDA events around a run of launches queued
+     behind a spin on the card), its per-call cost (host clock around a
+     run of calls) and its plain version's per-call cost, beside its
+     bound; then the DIF transform for each stages-per-pass width, and
+     the stage-by-stage DIF against the transform in turns (old, new,
+     new, old);
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
@@ -31,20 +41,23 @@ Phases (any failure exits non-zero and prints no result):
   7. every kernel's launches on each main path: the steady MiMC 2^16,
      fib-square 2^13 and 2^16 proofs and the MiMC-as-AIR proof, each
      counted alone (counts set to 0 just before it, read just after);
-     each kernel > 0 on every path that runs it; one JSON line of kernel
-     rows, each with the count of its own main path and the counts of
-     every path, and the result line.
+     each kernel > 0 on every path that runs it, no stage-by-stage DIF
+     launch on any path, and at most one DIF pass launch per 8 stages;
+     one JSON line of kernel rows, each with the count of its own main
+     path and the counts of every path, and the result line.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
 
 import copy
+import functools
 import json
+import random
 import re
-import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 20261016
 CONSTS = [(i ** 7) ^ 42 for i in range(64)]
@@ -63,17 +76,22 @@ EXT = 8
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_CLOCK_PER_SM = 64
 ELEM = 32                     # bytes per field element
+MODULUS = 2 ** 256 - 351 * 2 ** 32 + 1
+C_FOLD = 2 ** 256 - MODULUS   # 2^256 mod p, the modmul's fold constant
+MUL_CHECKS = 2 ** 20          # products held against the plain modmul
+REPS = 50                     # launches or calls per timing
 # Least 32-bit integer operations per field op in csrc/field.cuh. A modmul
-# takes 64 (schoolbook) + 8 + 2 (folds by 350) variable 32x32->64
-# products, each two multiply-adds (low and high word); products by
-# 2^32 - 1 and all carry adds are left out. An add or sub takes at least
-# one operation per word. So the operations bound is a least time.
+# takes 64 (schoolbook) + 8 + 2 (folds by 351) variable 32x32->64
+# products, each two multiply-adds (low and high word); all carry adds
+# are left out. An add or sub takes at least one operation per word. So
+# the operations bound is a least time.
 OPS_MUL = 2 * (64 + 8 + 2)
 OPS_ADD = 8
 
 SRC = "starks_tpu_torch/csrc/kernels.cu"
 REPLACES = {
     "dif_stage": "starks_tpu/ops/plimbs.py:154",
+    "dif_pass": "starks_tpu/ops/plimbs.py:154",
     "dit_stage": "starks_tpu/ops/plimbs.py:161",
     "scale": "starks_tpu/ops/plimbs.py:175",
     "db_map": "starks_tpu/ops/plimbs.py:181",
@@ -85,16 +103,17 @@ REPLACES = {
     "cube": "starks_tpu/ops/plimbs.py:289",
 }
 # The main paths, each counted alone, and the kernels each must launch.
-# A kernel's row reports the count of the first path here that runs it.
-NTT_FRI = ["dif_stage", "dit_stage", "scale", "fold4"]
+# A kernel's row reports the count of the first path here that runs it:
+# the 2^16-step paths first, whose shapes phase 2 times.
+NTT_FRI = ["dif_pass", "dit_stage", "scale", "fold4"]
 FIB = f"fib-square {SMALL_STEPS}"
 FIB_BIG = f"fib-square {BIG_STEPS}"
 MIMC = f"MiMC {BIG_STEPS}"
 MIMC_AIR = f"MiMC-as-AIR {SMALL_STEPS}"
 PATH_KERNELS = {
-    FIB: NTT_FRI + ["mul", "add", "sub"],
-    FIB_BIG: NTT_FRI + ["mul", "add", "sub"],
     MIMC: NTT_FRI + ["db_map", "l_map"],
+    FIB_BIG: NTT_FRI + ["mul", "add", "sub"],
+    FIB: NTT_FRI + ["mul", "add", "sub"],
     MIMC_AIR: NTT_FRI + ["mul", "add", "sub", "cube"],
 }
 
@@ -122,16 +141,46 @@ def rand_elems(n, gen, device):
     return fl.cond_sub_p(words.to(device))
 
 
+def structured_ints():
+    """Canonical values that load the carry chains: 0, 1, 2, p - 1, p - 2,
+    2^255, 2^240 - 1, and every pattern of all-ones and zero words
+    (reduced mod p)."""
+    m = MODULUS
+    ones = [sum(0xFFFFFFFF << (32 * i) for i in range(8) if mask >> i & 1)
+            % m for mask in range(1, 256)]
+    return [0, 1, 2, m - 1, m - 2, 2 ** 255, (1 << 240) - 1] + ones
+
+
 def edge_elems(device):
-    from starks_tpu_torch.ops import limbs as fl
     from starks_tpu_torch.utils.conversions import ints_to_tensor
-    m = fl.MODULUS
-    return ints_to_tensor([0, 1, 2, m - 1, m - 2, 2 ** 255, (1 << 240) - 1],
-                          device)
+    return ints_to_tensor(structured_ints(), device)
 
 
-def int_ops_per_s(device) -> float:
-    """Peak 32-bit integer multiply-adds per second of the card."""
+def mul_edge_pairs(seed=SEED, constructed=1024):
+    """Operand pairs (a, b), as two int lists, that reach every carry path
+    of the modmul in csrc/field.cuh: every pair of structured values, and
+    pairs built as b = r / a for a random a and a chosen result r. With
+    P = a*b, d = floor(P/p) - floor(P/2^256) and r = P mod p, the second
+    fold carries out (top = 1) exactly when c <= r < d*c, and the folded
+    value lands in [p, 2p) before the last conditional subtract exactly
+    when r < c (c = 2^256 mod p). A random a makes P ~ 2^510 and d ~ 2^38,
+    so half the built pairs take r < c and half r in [c, 2^70)."""
+    vals = structured_ints()
+    a = [x for x in vals for _ in vals]
+    b = [y for _ in vals for y in vals]
+    rng = random.Random(seed)
+    for i in range(constructed):
+        x = rng.randrange(1, MODULUS)
+        r = (rng.randrange(C_FOLD) if i % 2 == 0
+             else rng.randrange(C_FOLD, 2 ** 70))
+        a.append(x)
+        b.append(r * pow(x, MODULUS - 2, MODULUS) % MODULUS)
+    return a, b
+
+
+@functools.lru_cache(maxsize=None)
+def card_clocks(device):
+    """(SM count, maximum SM clock in MHz) of the card."""
     import torch
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -139,29 +188,29 @@ def int_ops_per_s(device) -> float:
         timeout=60)
     check(res.returncode == 0, f"nvidia-smi: {res.stderr.strip()}")
     mhz = float(res.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    print(f"  {sms} SMs at {mhz:.0f} MHz max: "
-          f"{INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6:.4e} int32 "
-          f"multiply-adds/s", flush=True)
-    return INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    return torch.cuda.get_device_properties(device).multi_processor_count, mhz
 
 
 def kernel_cases(steps, device):
-    """(name, wrapper, plain, [args, ...], bytes, ops) for each kernel at
-    the shapes a `steps`-step proof gives it, with edge values up front.
-    Every args tuple is checked and timed; the first is bounded and goes
-    into the kernel's row. The NTT stages are checked at their first,
-    middle and last stage."""
+    """(name, wrapper, plain, [args, ...], bytes, ops, warm) for each
+    kernel at the shapes a `steps`-step proof gives it, with structured
+    values up front in every array. Every args tuple is checked and
+    timed; the first is bounded and goes into the kernel's row. `warm`:
+    the proof finds the inputs in the 50 MB L2 (an NTT pass or FRI round
+    reads its predecessor's output), so the kernel is timed without a
+    flush; the others are timed with the L2 overwritten before each
+    launch."""
     import torch
     from starks_tpu_torch.ops import plimbs
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
     gen = torch.Generator().manual_seed(SEED)
     n_big = steps * EXT
     edge = edge_elems(device)
-    ne = edge.shape[0]
 
-    def arr(n):
+    def arr(n, front=edge):
         a = rand_elems(n, gen, device)
-        a[:ne] = edge
+        m = min(n, front.shape[0])
+        a[:m] = front[:m]
         return a
 
     def one():
@@ -170,14 +219,18 @@ def kernel_cases(steps, device):
     const = rand_elems(1, gen, device)          # [1, 8], read periodically
 
     x_small, tw_small = arr(steps), arr(steps)
+    x_13, tw_13 = arr(SMALL_STEPS), arr(SMALL_STEPS)
     x_big, tw_big = arr(n_big), arr(n_big)
     p, xs, iz2 = arr(n_big), arr(n_big), arr(n_big)
     k_tab, zni = arr(EXT * len(CONSTS)), arr(EXT)
     d, b, cp, cb = arr(n_big), arr(n_big), arr(EXT), arr(EXT)
-    ip = arr(n_big // 4)
     s, last, slope, ia = one(), one(), one(), one()
-    sx, eta, inv4 = one(), one(), one()
+    sx, eta = one(), one()
     q = n_big // 4
+    ip = arr(q)                                 # round 0's u-table
+    ea, eb = (ints_to_tensor(v, device) for v in mul_edge_pairs())
+    check(ea.shape[0] < MUL_CHECKS, "too many edge pairs")
+    ma, mb = arr(MUL_CHECKS, ea), arr(MUL_CHECKS, eb)
 
     def stage_bytes(n):          # x in, out, stage-0 twiddles n/2
         return ELEM * (2 * n + n // 2)
@@ -186,55 +239,121 @@ def kernel_cases(steps, device):
         logn = x.shape[0].bit_length() - 1
         return [(x, tw, t) for t in (0, logn // 2, logn - 1)]
 
+    def short_k(n):              # stages per pass with a short last pass
+        logn = n.bit_length() - 1
+        return next(k for k in range(plimbs.dif_pass_stages(n) - 1, 0, -1)
+                    if logn % k)
+
+    folds = []                   # every FRI round of the proof
+    n_r = n_big
+    while n_r // 4 >= 2 ** 5:
+        folds.append((arr(n_r), ip, sx, eta, 2 * len(folds)))
+        n_r //= 4
+    check(len(folds) == 7, f"{len(folds)} FRI rounds, expected 7")
+
     return [
+        ("dif_pass", plimbs.dif_transform,
+         lambda x, tw, k=None: plimbs.dif_transform_plain(x, tw),
+         [(x_small, tw_small), (x_small, tw_small, short_k(steps)),
+          (x_13, tw_13), (x_13, tw_13, short_k(SMALL_STEPS))],
+         stage_bytes(steps),
+         (steps.bit_length() - 1) * steps // 2 * (OPS_MUL + 2 * OPS_ADD),
+         True),
         ("dif_stage", plimbs.dif_stage, plimbs.dif_stage_plain,
          stages(x_small, tw_small), stage_bytes(steps),
-         steps // 2 * (OPS_MUL + 2 * OPS_ADD)),
+         steps // 2 * (OPS_MUL + 2 * OPS_ADD), True),
         ("scale", plimbs.scale, plimbs.scale_plain, [(x_small, s)],
-         ELEM * (2 * steps + 1), steps * OPS_MUL),
+         ELEM * (2 * steps + 1), steps * OPS_MUL, True),
         ("dit_stage", plimbs.dit_stage, plimbs.dit_stage_plain,
          stages(x_big, tw_big), stage_bytes(n_big),
-         n_big // 2 * (OPS_MUL + 2 * OPS_ADD)),
+         n_big // 2 * (OPS_MUL + 2 * OPS_ADD), True),
         ("db_map", plimbs.db_map, plimbs.db_map_plain,
          [(p, xs, k_tab, zni, iz2, last, slope, ia, EXT)],
          ELEM * (5 * n_big + k_tab.shape[0] + EXT + 3),
-         n_big * (6 * OPS_MUL + 5 * OPS_ADD)),
+         n_big * (6 * OPS_MUL + 5 * OPS_ADD), False),
         ("l_map", plimbs.l_map, plimbs.l_map_plain, [(d, p, b, cp, cb)],
-         ELEM * (4 * n_big + 2 * EXT), n_big * (2 * OPS_MUL + 2 * OPS_ADD)),
-        ("fold4", plimbs.fold4, plimbs.fold4_plain,
-         [(x_big, ip, sx, eta, inv4)], ELEM * (n_big + 2 * q + 3),
-         q * (6 * OPS_MUL + 11 * OPS_ADD)),
+         ELEM * (4 * n_big + 2 * EXT), n_big * (2 * OPS_MUL + 2 * OPS_ADD),
+         False),
+        ("fold4", plimbs.fold4, plimbs.fold4_plain, folds,
+         ELEM * (n_big + 2 * q + 2), q * (5 * OPS_MUL + 13 * OPS_ADD),
+         True),
         ("mul", plimbs.mul, plimbs.mul_plain,
-         [(x_big, p), (d, zni), (const, xs)], ELEM * 3 * n_big,
-         n_big * OPS_MUL),
+         [(x_big, p), (d, zni), (const, xs), (ma, mb)], ELEM * 3 * n_big,
+         n_big * OPS_MUL, False),
         ("add", plimbs.add, plimbs.add_plain,
          [(x_big, p), (const, xs), (d, cp)], ELEM * 3 * n_big,
-         n_big * OPS_ADD),
+         n_big * OPS_ADD, False),
         ("sub", plimbs.sub, plimbs.sub_plain,
          [(x_big, p), (zni, xs), (b, const)], ELEM * 3 * n_big,
-         n_big * OPS_ADD),
+         n_big * OPS_ADD, False),
         ("cube", plimbs.cube, plimbs.cube_plain, [(x_big,)],
-         ELEM * 2 * n_big, n_big * 2 * OPS_MUL),
+         ELEM * 2 * n_big, n_big * 2 * OPS_MUL, False),
     ]
 
 
-def time_ms(fn, reps, device):
-    """Median ms of `reps` single calls, each timed with CUDA events
-    after the L2 cache (50 MB) is overwritten."""
+def call_ms(fn, device, reps=REPS):
+    """Per-call cost in ms: the host clock around `reps` calls that end
+    in one synchronize, over `reps`. What a caller pays per call: the
+    wrapper's host work, the launch, and the device time where that is
+    longer."""
     import torch
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
     fn()
-    times = []
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
     for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_ms(fn, device, spin_ms, flush=None, reps=REPS):
+    """Device time per call of `fn` in ms, after a warm-up call.
+
+    A spin of `spin_ms` on the card is queued first, then the calls: so
+    the host queues every launch (wrapper work and all) while the card
+    is still spinning, and the events see only the card's work. That
+    the spin was still running when the last call returned is checked
+    (else the spin is lengthened and the run repeated). Without `flush`,
+    events around `reps` back-to-back calls, over `reps` (the inputs
+    stay in L2). With `flush` (a large tensor), the L2 is overwritten
+    before each call and events around each call are summed."""
+    import torch
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(4):
+        torch.cuda._sleep(int(spin_ms * card_clocks(device)[1] * 1e3))
+        spun = torch.cuda.Event()
+        spun.record()
+        if flush is None:
+            windows = [(torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))]
+            windows[0][0].record()
+            for _ in range(reps):
+                fn()
+            windows[0][1].record()
+        else:
+            windows = []
+            for _ in range(reps):
+                flush.zero_()
+                w = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+                w[0].record()
+                fn()
+                w[1].record()
+                windows.append(w)
+        ahead = not spun.query()
         torch.cuda.synchronize(device)
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        if ahead:
+            return sum(a.elapsed_time(b) for a, b in windows) / reps
+        spin_ms *= 4
+    check(False, "the host never ran ahead of the card")
+
+
+def kernel_times(fn, device, flush=None):
+    """(device ms per call, per-call ms) of `fn`."""
+    per_call = call_ms(fn, device)
+    spin = 2 * REPS * per_call + 1.0
+    return device_ms(fn, device, spin, flush), per_call
 
 
 def max_abs_err(wrapper, plain, args) -> int:
@@ -252,35 +371,140 @@ def max_abs_err(wrapper, plain, args) -> int:
     return err
 
 
-def phase_kernels(steps, device, reps=20, plain_reps=3):
-    """Phase 2: each kernel equals its plain version; times and bounds."""
-    ops_per_s = int_ops_per_s(device)
+def phase_kernels(steps, device, plain_reps=3):
+    """Phase 2: each kernel equals its plain version; device time per
+    launch, per-call cost and bound."""
+    import torch
+    sms, mhz = card_clocks(device)
+    ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    print(f"  {sms} SMs at {mhz:.0f} MHz max: {ops_per_s:.4e} int32 "
+          f"multiply-adds/s", flush=True)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
     rows = {}
-    for name, wrapper, plain, cases, nbytes, ops in kernel_cases(steps,
-                                                                 device):
+    for name, wrapper, plain, cases, nbytes, ops, warm in kernel_cases(
+            steps, device):
         err = max(max_abs_err(wrapper, plain, args) for args in cases)
+        times = [kernel_times(lambda a=a: wrapper(*a), device,
+                              None if warm else flush) for a in cases]
         args = cases[0]
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / ops_per_s * 1e3
         row = {"name": name, "route": "cuda", "source": SRC,
                "replaces": REPLACES[name], "launches": 0,
-               "max_abs_err": err,
-               "ms": time_ms(lambda: wrapper(*args), reps, device),
-               "plain_ms": time_ms(lambda: plain(*args), plain_reps, device),
+               "max_abs_err": err, "ms": times[0][0],
+               "call_ms": times[0][1],
+               "plain_ms": call_ms(lambda: plain(*args), device,
+                                   plain_reps),
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "library_ms": None}
+               "library_ms": None, "l2": "warm" if warm else "flushed"}
         rows[name] = row
         print(f"  {name:<10s} equal to plain in {len(cases)} case(s) "
-              f"(max_abs_err {err}); "
-              f"kernel {row['ms']} ms, plain {row['plain_ms']} ms, "
-              f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})",
-              flush=True)
-        if len(cases) > 1:
-            print("    kernel ms in the other cases: " + ", ".join(
-                str(time_ms(lambda a=a: wrapper(*a), reps, device))
-                for a in cases[1:]), flush=True)
+              f"(max_abs_err {err}); device {row['ms']:.6f} ms per call, "
+              f"per-call {row['call_ms']:.6f} ms, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}), L2 {row['l2']}", flush=True)
+        for i, (dev, per_call) in enumerate(times[1:], 1):
+            print(f"    case {i}: device {dev:.6f} ms, per-call "
+                  f"{per_call:.6f} ms", flush=True)
     return rows
+
+
+def phase_dif_designs(device):
+    """Phase 2, continued: the DIF transform for each stages-per-pass
+    width at 2^13 and 2^16 points (each equal to the plain stage chain),
+    then the stage-by-stage network (one dif_stage launch per stage)
+    against the transform, in turns (old, new, new, old)."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for n in (SMALL_STEPS, BIG_STEPS):
+        logn = n.bit_length() - 1
+        x, tw = rand_elems(n, gen, device), rand_elems(n, gen, device)
+        want = plimbs.dif_transform_plain(x, tw)
+        chosen = plimbs.dif_pass_stages(n)
+        for k in range(4, plimbs.DIF_PASS_MAX_STAGES + 1):
+            check(torch.equal(plimbs.dif_transform(x, tw, k), want),
+                  f"DIF transform, n = {n}, k = {k}, differs from plain")
+            dev, per_call = kernel_times(
+                lambda: plimbs.dif_transform(x, tw, k), device)
+            mark = " (chosen)" if k == chosen else ""
+            print(f"  DIF n = 2^{logn}, {k:2d} stages per pass "
+                  f"({-(-logn // k)} launches){mark}: device {dev:.6f} ms, "
+                  f"per-call {per_call:.6f} ms", flush=True)
+
+        def old():
+            y = x
+            for t in range(logn):
+                y = plimbs.dif_stage(y, tw, t)
+            return y
+
+        check(torch.equal(old(), want), "stage-by-stage DIF differs")
+        turns = []
+        for label, fn in (("old", old),
+                          ("new", lambda: plimbs.dif_transform(x, tw)),
+                          ("new", lambda: plimbs.dif_transform(x, tw)),
+                          ("old", old)):
+            dev, per_call = kernel_times(fn, device)
+            turns.append(f"{label} {dev:.6f} / {per_call:.6f}")
+        print(f"  DIF n = 2^{logn}, stage by stage ({logn} launches) "
+              f"against the transform, device / per-call ms per "
+              f"transform: " + "; ".join(turns), flush=True)
+
+
+def phase_build(build) -> str:
+    """Phase 1: the card's name and power limit (returned), the kernel
+    build, its register report and SASS counts."""
+    card = card_line()
+    print(f"  card: {card}", flush=True)
+    t0 = time.perf_counter()
+    lib_path = build.build()
+    build.load()
+    print(f"  kernels built in {time.perf_counter() - t0:.1f} s: "
+          f"{lib_path.name}", flush=True)
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        kernel = re.search(r"Compiling entry function '(\w+)'", line)
+        if kernel:
+            km = FIELD_KERNEL.match(kernel.group(1))
+            print(f"    {km.group(1) if km else kernel.group(1)}:",
+                  flush=True)
+        elif "registers" in line or "spill" in line:
+            print(f"      {line.strip()}", flush=True)
+    print_sass_counts(lib_path, build)
+    return card
+
+
+def print_sass_counts(lib_path, build):
+    """Each kernel's IMAD-class instructions (IMAD, IMAD.WIDE, IMAD.HI,
+    their .X forms; the IMAD.MOV/SHL/IADD forms that only move or add
+    counted apart) and all its instructions, from cuobjdump -sass, where
+    the toolkit has cuobjdump."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        print("    cuobjdump not found: no SASS counts", flush=True)
+        return
+    res = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump: {res.stderr.strip()}")
+    counts, kernel = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            km = FIELD_KERNEL.match(m.group(1))
+            kernel = km.group(1) if km else m.group(1)
+            counts[kernel] = [0, 0, 0]
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                       line)
+        if kernel is None or not op:
+            continue
+        counts[kernel][2] += 1
+        if op.group(1).startswith("IMAD"):
+            moves = re.match(r"IMAD\.(MOV|SHL|IADD)", op.group(1))
+            counts[kernel][1 if moves else 0] += 1
+    for kernel, (imad, moves, total) in sorted(counts.items()):
+        print(f"    SASS {kernel}: {imad} IMAD-class (+{moves} "
+              f"IMAD.MOV/SHL/IADD), {total} instructions", flush=True)
 
 
 def counted(run):
@@ -450,10 +674,11 @@ def phase_profiles(device, mimc_steady_s, air_steady_s):
                       device, steady)
 
 
-# The field kernels, as the profiler names them (mangled or not).
+# The field kernels, as the profiler and cuobjdump name them (mangled
+# or not).
 FIELD_KERNEL = re.compile(
-    r"^(?:void )?(?:_Z\d+)?(dif|dit|scale|db|l|fold4|mul|add|sub|cube)"
-    r"_kernel(?:\(|P|$)")
+    r"^(?:void )?(?:_Z\d+)?(dif_pass|dif|dit|scale|db|l|fold4|mul|add|sub"
+    r"|cube)_kernel(?:\(|P|$)")
 
 
 def profile_proof(run, device, steady_s):
@@ -490,15 +715,26 @@ def profile_proof(run, device, steady_s):
 
 
 def phase_launches(rows, launches):
-    """Phase 7: each path launched every kernel it runs; each kernel row
-    gets the count of its own main path and those of every path."""
+    """Phase 7: each path launched every kernel it runs, the DIF only
+    through the multi-stage passes (at most one launch per 8 stages:
+    <= 2 per 2^16-point and <= 4 per fib-square 2^13 proof, two
+    columns); each kernel row gets the count of its own main path (0 for
+    the stage-by-stage DIF, which no path runs) and those of every
+    path."""
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,
                   f"kernel {name} never ran on the {path} path")
+        check(launches[path]["dif_stage"] == 0,
+              f"the stage-by-stage DIF ran on the {path} path")
+    check(launches[MIMC]["dif_pass"] <= 3,
+          f"{launches[MIMC]['dif_pass']} DIF launches on the {MIMC} path")
+    check(launches[FIB]["dif_pass"] <= 4,
+          f"{launches[FIB]['dif_pass']} DIF launches on the {FIB} path")
     for name, row in rows.items():
-        row["path"] = next(p for p, ks in PATH_KERNELS.items() if name in ks)
-        row["launches"] = launches[row["path"]][name]
+        row["path"] = next((p for p, ks in PATH_KERNELS.items()
+                            if name in ks), None)
+        row["launches"] = launches[row["path"]][name] if row["path"] else 0
         row["launches_by_path"] = {p: launches[p][name] for p in PATH_KERNELS}
         print(f"  {name:<10s} " + ", ".join(
             f"{p} {n}" for p, n in row["launches_by_path"].items()),
@@ -519,20 +755,12 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     print("phase 1: card and build", flush=True)
-    card = card_line()
-    print(f"  card: {card}", flush=True)
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load()
-    print(f"  kernels built in {time.perf_counter() - t0:.1f} s: "
-          f"{lib_path.name}", flush=True)
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    {line.strip()}", flush=True)
+    card = phase_build(_build)
 
     print(f"phase 2: kernels against plain versions at {BIG_STEPS}-step "
           f"shapes", flush=True)
     rows = phase_kernels(BIG_STEPS, device)
+    phase_dif_designs(device)
 
     print("phase 3: main path, small proof", flush=True)
     phase_small_proof(SMALL_STEPS, device)

@@ -145,8 +145,7 @@ class _FusedAIRSetup:
         self.precision, self.ext = precision, ext
         self.schedule = fused.fri_round_schedule(
             precision, steps * 2, config.fri_base_cutoff)
-        self.plan = fused.FusedPlan(steps, precision, G1, G2,
-                                    len(self.schedule), device)
+        self.plan = fused.FusedPlan(steps, precision, G1, G2, device)
         self.ops = TorchOps(device)
 
         xs = fused.powers(G2, precision)
@@ -161,7 +160,6 @@ class _FusedAIRSetup:
         self.h_pows = ints_to_tensor([pow(h, i, m) for i in range(ext)],
                                      device)
         self.eta_l = int_to_tensor(pow(G2, precision // 4, m), device)
-        self.inv4_l = int_to_tensor(hf.inv(4), device)
 
         # Each constant column's extension at its own period 8*len(col).
         self.k_tabs = []

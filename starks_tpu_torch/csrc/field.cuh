@@ -8,8 +8,17 @@
 // column scheme was shaped by its 8x128 vector tiles; here a product is
 // an 8x8 schoolbook of 32x32->64-bit multiply-adds.
 //
-// Without nvcc the header compiles as plain C++ (g++), so the same
-// arithmetic can be built and tested on a machine with no GPU.
+// On the card (__CUDA_ARCH__) add, sub and mul are PTX carry chains
+// (add.cc/addc, sub.cc/subc, mad.hi.cc/madc.hi) around 64-bit
+// multiply-adds: each word's carry rides in the carry flag, so no
+// 64-bit sum is built per word, and a product by c = 351*2^32 - 1 in
+// the folds is one multiply by 351 and a shifted subtract
+// (x*c = 351*x*2^32 - x). Without nvcc,
+// and in nvcc's host pass, the header is plain C++ on 64-bit
+// accumulators (the `#else` branches), so the arithmetic can be built
+// with g++ and tested on a machine with no GPU; the device branches are
+// held to the plain versions on the card (chip_smoke.py phase 2, with
+// edge pairs that reach every carry path of the folds).
 #pragma once
 
 #include <stdint.h>
@@ -30,12 +39,59 @@ FIELD_FN uint32_t p_word(int i) {
 // c = 2^256 mod p = 351*2^32 - 1, as words [0xFFFFFFFF, 350].
 constexpr uint32_t C0 = 0xFFFFFFFFu;
 constexpr uint32_t C1 = 350u;
+constexpr uint32_t C_MUL = 351u;  // c = C_MUL * 2^32 - 1
 
 // 16-byte aligned, so a load or store of one element is two 16-byte
 // accesses. Callers pass 16-byte aligned arrays (ops/plimbs.py checks).
 struct alignas(16) Fe {
   uint32_t w[8];
 };
+
+#ifdef __CUDA_ARCH__
+// One PTX instruction each. A run of them chains its carries through the
+// carry flag: `asm volatile` keeps the run in program order, and no
+// other instruction that writes the flag is emitted between them.
+namespace ptx {
+#define FIELD_PTX2(name, op)                                     \
+  __device__ __forceinline__ uint32_t name(uint32_t x, uint32_t y) { \
+    uint32_t r;                                                  \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(x), "r"(y));  \
+    return r;                                                    \
+  }
+#define FIELD_PTX3(name, op)                                               \
+  __device__ __forceinline__ uint32_t name(uint32_t x, uint32_t y,         \
+                                           uint32_t z) {                   \
+    uint32_t r;                                                            \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(y), "r"(z)); \
+    return r;                                                              \
+  }
+FIELD_PTX2(add_cc, "add.cc.u32")
+FIELD_PTX2(addc_cc, "addc.cc.u32")
+FIELD_PTX2(addc, "addc.u32")
+FIELD_PTX2(sub_cc, "sub.cc.u32")
+FIELD_PTX2(subc_cc, "subc.cc.u32")
+FIELD_PTX2(subc, "subc.u32")
+FIELD_PTX3(mad_hi_cc, "mad.hi.cc.u32")
+FIELD_PTX3(madc_hi_cc, "madc.hi.cc.u32")
+FIELD_PTX3(madc_hi, "madc.hi.u32")
+#undef FIELD_PTX2
+#undef FIELD_PTX3
+}  // namespace ptx
+
+// (top:x) - p if that is >= 0, else x, for (top:x) < 2p: x - p is
+// x + c - 2^256, so (top:x) >= p exactly when top is set or x + c
+// carries out.
+__device__ __forceinline__ void reduce_once_dev(uint32_t x[8], uint32_t top) {
+  uint32_t s[8];
+  s[0] = ptx::add_cc(x[0], C0);
+  s[1] = ptx::addc_cc(x[1], C1);
+#pragma unroll
+  for (int i = 2; i < 8; ++i) s[i] = ptx::addc_cc(x[i], 0);
+  const uint32_t take = top | ptx::addc(0, 0);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = take ? s[i] : x[i];
+}
+#endif
 
 // (top:x) - p if that is >= 0, else x. Requires (top:x) < 2p.
 FIELD_FN void reduce_once(uint32_t x[8], uint32_t top) {
@@ -54,6 +110,12 @@ FIELD_FN void reduce_once(uint32_t x[8], uint32_t top) {
 
 FIELD_FN Fe add(const Fe& a, const Fe& b) {
   Fe r;
+#ifdef __CUDA_ARCH__
+  r.w[0] = ptx::add_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) r.w[i] = ptx::addc_cc(a.w[i], b.w[i]);
+  reduce_once_dev(r.w, ptx::addc(0, 0));
+#else
   uint64_t carry = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -62,6 +124,7 @@ FIELD_FN Fe add(const Fe& a, const Fe& b) {
     carry = t >> 32;
   }
   reduce_once(r.w, (uint32_t)carry);
+#endif
   return r;
 }
 
@@ -69,6 +132,16 @@ FIELD_FN Fe add(const Fe& a, const Fe& b) {
 // "subtract c again").
 FIELD_FN Fe sub(const Fe& a, const Fe& b) {
   Fe r;
+#ifdef __CUDA_ARCH__
+  r.w[0] = ptx::sub_cc(a.w[0], b.w[0]);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) r.w[i] = ptx::subc_cc(a.w[i], b.w[i]);
+  const uint32_t mask = ptx::subc(0, 0);  // all ones on a borrow
+  r.w[0] = ptx::add_cc(r.w[0], p_word(0) & mask);
+#pragma unroll
+  for (int i = 1; i < 7; ++i) r.w[i] = ptx::addc_cc(r.w[i], p_word(i) & mask);
+  r.w[7] = ptx::addc(r.w[7], p_word(7) & mask);
+#else
   uint64_t borrow = 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -84,12 +157,12 @@ FIELD_FN Fe sub(const Fe& a, const Fe& b) {
     r.w[i] = (uint32_t)t;
     carry = t >> 32;
   }
+#endif
   return r;
 }
 
-FIELD_FN Fe mul(const Fe& a, const Fe& b) {
-  // 512-bit product, 8x8 schoolbook.
-  uint32_t w[16];
+// 512-bit product w = a * b, the 8x8 schoolbook on 64-bit accumulators.
+FIELD_FN void mul_wide(const Fe& a, const Fe& b, uint32_t w[16]) {
 #pragma unroll
   for (int i = 0; i < 16; ++i) w[i] = 0;
 #pragma unroll
@@ -103,7 +176,89 @@ FIELD_FN Fe mul(const Fe& a, const Fe& b) {
     }
     w[i + 8] = (uint32_t)carry;
   }
+}
 
+#ifdef __CUDA_ARCH__
+// The schoolbook on the card, row by row: t_j = a_j * b_i + w[i+j] is
+// one 32x32+32 -> 64-bit multiply-add (IMAD.WIDE; it cannot overflow),
+// and the row's words w[i+j] = lo(t_j) + hi(t_{j-1}) ride one carry
+// chain, so each product costs a multiply-add and one add.
+__device__ __forceinline__ void mul_wide_dev(const Fe& a, const Fe& b,
+                                             uint32_t w[16]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      t[j] = (uint64_t)a.w[j] * b.w[i] + (i ? w[i + j] : 0u);
+    w[i] = (uint32_t)t[0];
+    w[i + 1] = ptx::add_cc((uint32_t)t[1], (uint32_t)(t[0] >> 32));
+#pragma unroll
+    for (int j = 2; j < 8; ++j)
+      w[i + j] = ptx::addc_cc((uint32_t)t[j], (uint32_t)(t[j - 1] >> 32));
+    w[i + 8] = ptx::addc((uint32_t)(t[7] >> 32), 0);
+  }
+}
+
+// w mod p on the card for w < 2^512: two folds by c, each one multiply
+// by 351 (x*c = 351*x*2^32 - x) and carry chains, then the carry fold
+// and one conditional subtract in reduce_once_dev.
+__device__ __forceinline__ Fe fold_dev(const uint32_t w[16]) {
+  // Fold 1: f = lo + hi*c = lo + m*2^32 - hi, m = 351*hi (9 words);
+  // f < 2^298 (10 words).
+  const uint32_t* hi = w + 8;
+  uint32_t m[9];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) m[j] = hi[j] * C_MUL;
+  m[1] = ptx::mad_hi_cc(hi[0], C_MUL, m[1]);
+#pragma unroll
+  for (int j = 1; j < 7; ++j)
+    m[j + 1] = ptx::madc_hi_cc(hi[j], C_MUL, m[j + 1]);
+  m[8] = ptx::madc_hi(hi[7], C_MUL, 0);
+  uint32_t f[10];
+  f[0] = w[0];
+  f[1] = ptx::add_cc(w[1], m[0]);
+#pragma unroll
+  for (int j = 2; j < 8; ++j) f[j] = ptx::addc_cc(w[j], m[j - 1]);
+  f[8] = ptx::addc_cc(m[7], 0);
+  f[9] = ptx::addc(m[8], 0);
+  f[0] = ptx::sub_cc(f[0], hi[0]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) f[j] = ptx::subc_cc(f[j], hi[j]);
+  f[8] = ptx::subc_cc(f[8], 0);
+  f[9] = ptx::subc(f[9], 0);
+
+  // Fold 2: g = f[0..7] + h*c with h = f[8] + f[9]*2^32 < 2^42. With
+  // n = 351*h < 2^51 (two words), h*c = n*2^32 - h < 2^83 is three
+  // words d; g < 2^256 + 2^83, top = g >> 256.
+  const uint32_t n0 = f[8] * C_MUL;
+  const uint32_t n1 = __umulhi(f[8], C_MUL) + f[9] * C_MUL;
+  const uint32_t d0 = ptx::sub_cc(0, f[8]);
+  const uint32_t d1 = ptx::subc_cc(n0, f[9]);
+  const uint32_t d2 = ptx::subc(n1, 0);
+  Fe g;
+  g.w[0] = ptx::add_cc(f[0], d0);
+  g.w[1] = ptx::addc_cc(f[1], d1);
+  g.w[2] = ptx::addc_cc(f[2], d2);
+#pragma unroll
+  for (int j = 3; j < 8; ++j) g.w[j] = ptx::addc_cc(f[j], 0);
+  const uint32_t top = ptx::addc(0, 0);
+
+  // top * 2^256 == top * c. When top is 1 the low words are below 2^83,
+  // so adding c cannot carry out and gives a value below p; otherwise
+  // one conditional subtract of p. reduce_once_dev does both.
+  reduce_once_dev(g.w, top);
+  return g;
+}
+#endif
+
+FIELD_FN Fe mul(const Fe& a, const Fe& b) {
+  uint32_t w[16];
+#ifdef __CUDA_ARCH__
+  mul_wide_dev(a, b, w);
+  return fold_dev(w);
+#else
+  mul_wide(a, b, w);
   // Fold 1: f = lo + hi * c < 2^298 (10 words).
   uint32_t f[10];
   uint64_t carry = 0;
@@ -155,6 +310,30 @@ FIELD_FN Fe mul(const Fe& a, const Fe& b) {
   }
   reduce_once(g.w, 0);
   return g;
+#endif
+}
+
+// x / 4 mod p, exactly and without a multiply: p = 1 mod 4, so with
+// k = -x mod 4 the sum x + k*p = x - k*c + k*2^256 is a multiple of 4
+// below 4p, and its quarter is canonical.
+FIELD_FN Fe div4(const Fe& x) {
+  const uint32_t k = (0u - x.w[0]) & 3u;
+  const uint64_t kc = (uint64_t)k * (((uint64_t)C1 << 32) + C0);  // < 2^43
+  uint32_t t[8];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint64_t sub = i < 2 ? (uint32_t)(kc >> (32 * i)) : 0u;
+    const uint64_t v = (uint64_t)x.w[i] - sub - borrow;
+    t[i] = (uint32_t)v;
+    borrow = v >> 63;
+  }
+  const uint32_t top = k - (uint32_t)borrow;  // (top:t) = x + k*p
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) r.w[i] = (t[i] >> 2) | (t[i + 1] << 30);
+  r.w[7] = (t[7] >> 2) | (top << 30);
+  return r;
 }
 
 FIELD_FN Fe cube(const Fe& a) { return mul(mul(a, a), a); }

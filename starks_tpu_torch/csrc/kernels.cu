@@ -4,7 +4,8 @@
 // computes what that kernel computes; the TPU's block structure is not
 // carried over. Arrays are [n] elements of 8 little-endian 32-bit words
 // (32 bytes, 16-byte aligned). One thread per output element (or
-// butterfly), a grid-stride loop, no shared memory. Periodic tables are
+// butterfly) and a grid-stride loop, except the DIF passes, which run
+// several NTT stages of a tile in shared memory. Periodic tables are
 // read as tab[i % len]; a scalar is one element in device memory.
 //
 // Each kernel's bound (bytes or integer multiply-adds) is noted in
@@ -41,6 +42,7 @@ inline uint32_t grid_for(uint32_t count) {
     return (int)cudaGetLastError();                                     \
   } while (0)
 #else
+#include <vector>
 #define KERNEL static void
 #define FOR_EACH(i, count) for (uint32_t i = 0; i < (count); ++i)
 #define LAUNCH(kernel, count, stream, ...) \
@@ -62,6 +64,98 @@ KERNEL dif_kernel(const Fe* __restrict__ x, const Fe* __restrict__ table,
     out[2 * j + 1] = field::mul(field::sub(a, b), table[(j >> t) << t]);
   }
 }
+
+// A1, redesigned: several Pease DIF stages in one pass. A pass at
+// stages s .. s+k-1 over n = 2^log_n elements works on n / 2^k groups.
+// Group g holds the 2^k elements x[g + m * n/2^k] (m < 2^k) and runs
+// the k stages as a local constant-geometry network: at local stage i,
+// a = loc[r] and b = loc[r + 2^(k-1)] give loc'[2r] = a + b and
+// loc'[2r+1] = (a - b) * w, with the twiddle of global stage s + i at
+// the butterfly's global half-index j (dif_twiddle_index). The group's
+// results are the contiguous out[g * 2^k + m], which is the array after
+// stage s+k-1 of the stage-by-stage network, so passes compose.
+FIELD_FN uint32_t dif_twiddle_index(uint32_t r, uint32_t g, uint32_t i,
+                                    uint32_t log_n, uint32_t k, uint32_t s) {
+  const uint32_t j = ((r >> i) << (log_n - k + i)) | (g << i) |
+                     (r & ((1u << i) - 1));
+  const uint32_t t = s + i;
+  return (j >> t) << t;
+}
+
+FIELD_FN void dif_butterfly(const Fe& a, const Fe& b, const Fe& w, Fe& u,
+                            Fe& v) {
+  u = field::add(a, b);
+  v = field::mul(field::sub(a, b), w);
+}
+
+#ifdef __CUDACC__
+// One block per tile of 2^(k + log_c) elements: C = 2^log_c consecutive
+// groups (C > 1 only for a pass shorter than the transform's pass
+// width, so every pass has the same tile). One thread per butterfly;
+// the tile lives in shared memory from load to store. For each m the C
+// elements x[g0 + c + m * groups] are contiguous, so neighbouring
+// threads load neighbouring elements when C > 1, and whole 32-byte
+// sectors always; the store is one contiguous run of the tile. With
+// about two warps per scheduler at 2^16 points the stages are bound by
+// latency, so each twiddle is loaded a stage ahead, as two 16-byte
+// loads through the read-only cache.
+__global__ void dif_pass_kernel(const Fe* __restrict__ x,
+                                const Fe* __restrict__ table,
+                                Fe* __restrict__ out, uint32_t log_n,
+                                uint32_t s, uint32_t k, uint32_t log_c) {
+  extern __shared__ Fe loc[];  // loc[c << k | m]
+  const uint32_t groups = 1u << (log_n - k);
+  const uint32_t size = 1u << (k + log_c);
+  const uint32_t g0 = blockIdx.x << log_c;
+  for (uint32_t e = threadIdx.x; e < size; e += blockDim.x) {
+    const uint32_t c = e & ((1u << log_c) - 1), m = e >> log_c;
+    loc[(c << k) | m] = x[g0 + c + m * groups];
+  }
+  __syncthreads();
+  const uint32_t half = 1u << (k - 1);
+  const uint32_t c = threadIdx.x >> (k - 1), r = threadIdx.x & (half - 1);
+  Fe* grp = loc + (c << k);
+  const uint4* tw = reinterpret_cast<const uint4*>(table);
+  uint32_t idx = dif_twiddle_index(r, g0 + c, 0, log_n, k, s);
+  uint4 w0 = __ldg(tw + 2 * idx), w1 = __ldg(tw + 2 * idx + 1);
+  for (uint32_t i = 0; i < k; ++i) {
+    const Fe w = {{w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w}};
+    if (i + 1 < k) {
+      idx = dif_twiddle_index(r, g0 + c, i + 1, log_n, k, s);
+      w0 = __ldg(tw + 2 * idx);
+      w1 = __ldg(tw + 2 * idx + 1);
+    }
+    Fe u, v;
+    dif_butterfly(grp[r], grp[r + half], w, u, v);
+    __syncthreads();
+    grp[2 * r] = u;
+    grp[2 * r + 1] = v;
+    __syncthreads();
+  }
+  for (uint32_t e = threadIdx.x; e < size; e += blockDim.x)
+    out[(g0 << k) + e] = loc[e];
+}
+#else
+// The same pass on the host: groups one after another, local stages in
+// order.
+static void dif_pass_host(const Fe* x, const Fe* table, Fe* out,
+                          uint32_t log_n, uint32_t s, uint32_t k) {
+  const uint32_t groups = 1u << (log_n - k), size = 1u << k;
+  const uint32_t half = size / 2;
+  std::vector<Fe> loc(size), nxt(size);
+  for (uint32_t g = 0; g < groups; ++g) {
+    for (uint32_t m = 0; m < size; ++m) loc[m] = x[g + m * groups];
+    for (uint32_t i = 0; i < k; ++i) {
+      for (uint32_t r = 0; r < half; ++r)
+        dif_butterfly(loc[r], loc[r + half],
+                      table[dif_twiddle_index(r, g, i, log_n, k, s)],
+                      nxt[2 * r], nxt[2 * r + 1]);
+      loc.swap(nxt);
+    }
+    for (uint32_t m = 0; m < size; ++m) out[g * size + m] = loc[m];
+  }
+}
+#endif
 
 // A3: DIT stage on interleaved pairs (replaces _dit_kernel):
 // u = a + w*b to the low half, v = a - w*b to the high half.
@@ -121,12 +215,13 @@ KERNEL l_kernel(const Fe* __restrict__ d, const Fe* __restrict__ p,
 
 // A6: FRI fold by 4 (replaces _fold4_kernel): the 4-point DFT (with
 // eta) of the four strided quarters y_j = values[j*q + i], Horner at
-// u = sx * ip[i], times 1/4.
+// u = sx * ip[i << shift], divided by 4. Round r reads round 0's table
+// (g^-i, i < N/4) at stride 4^r (shift = 2r), so one table serves every
+// round. Five modmuls per output: the 1/4 is an exact division.
 KERNEL fold4_kernel(const Fe* __restrict__ values, const Fe* __restrict__ ip,
                     const Fe* __restrict__ sx, const Fe* __restrict__ eta,
-                    const Fe* __restrict__ inv4, Fe* __restrict__ out,
-                    uint32_t q) {
-  const Fe sx_v = *sx, eta_v = *eta, inv4_v = *inv4;
+                    Fe* __restrict__ out, uint32_t q, uint32_t shift) {
+  const Fe sx_v = *sx, eta_v = *eta;
   FOR_EACH(i, q) {
     const Fe y0 = values[i], y1 = values[q + i];
     const Fe y2 = values[2 * q + i], y3 = values[3 * q + i];
@@ -135,11 +230,11 @@ KERNEL fold4_kernel(const Fe* __restrict__ values, const Fe* __restrict__ ip,
     const Fe a0 = field::add(e0, e1), a2 = field::sub(e0, e1);
     const Fe h = field::mul(d13, eta_v);
     const Fe a1 = field::sub(d02, h), a3 = field::add(d02, h);
-    const Fe u = field::mul(sx_v, ip[i]);
+    const Fe u = field::mul(sx_v, ip[i << shift]);
     Fe acc = field::add(field::mul(u, a3), a2);
     acc = field::add(field::mul(u, acc), a1);
     acc = field::add(field::mul(u, acc), a0);
-    out[i] = field::mul(acc, inv4_v);
+    out[i] = field::div4(acc);
   }
 }
 
@@ -182,6 +277,36 @@ int starks_dif_stage(const void* x, const void* table, void* out, uint32_t n,
   LAUNCH(dif_kernel, n / 2, stream, F(x), F(table), W(out), n / 2, t);
 }
 
+// The DIF transform as ceil(log_n / k) passes of at most k stages
+// (1 <= k <= 10: a tile of 2^k elements, 2^(k-1) threads and 32 * 2^k
+// bytes of shared memory, under the 48 KB a launch gets without opting
+// in). The passes ping-pong between out and scratch, so the last one
+// writes out; x is only read, and scratch is unused for one pass.
+int starks_ntt_dif(const void* x, const void* table, void* out,
+                   void* scratch, uint32_t n, uint32_t k, void* stream) {
+  uint32_t log_n = 0;
+  while ((1u << log_n) < n) ++log_n;
+  const uint32_t passes = (log_n + k - 1) / k;
+  const Fe* src = F(x);
+  for (uint32_t p = 0, s = 0; s < log_n; ++p, s += k) {
+    const uint32_t kk = log_n - s < k ? log_n - s : k;
+    Fe* dst = (passes - 1 - p) % 2 ? W(scratch) : W(out);
+#ifdef __CUDACC__
+    const uint32_t blocks = n >> k, threads = 1u << (k - 1);
+    const size_t smem = sizeof(Fe) << k;
+    dif_pass_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        src, F(table), dst, log_n, s, kk, k - kk);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+#else
+    (void)stream;
+    dif_pass_host(src, F(table), dst, log_n, s, kk);
+#endif
+    src = dst;
+  }
+  return 0;
+}
+
 int starks_dit_stage(const void* x, const void* table, void* out, uint32_t n,
                      uint32_t t, void* stream) {
   LAUNCH(dit_kernel, n / 2, stream, F(x), F(table), W(out), n / 2, t);
@@ -210,10 +335,10 @@ int starks_l_map(const void* d, const void* p, const void* b, const void* cp,
 }
 
 int starks_fold4(const void* values, const void* ip, const void* sx,
-                 const void* eta, const void* inv4, void* out, uint32_t q,
+                 const void* eta, void* out, uint32_t q, uint32_t shift,
                  void* stream) {
-  LAUNCH(fold4_kernel, q, stream, F(values), F(ip), F(sx), F(eta), F(inv4),
-         W(out), q);
+  LAUNCH(fold4_kernel, q, stream, F(values), F(ip), F(sx), F(eta), W(out), q,
+         shift);
 }
 
 int starks_mul(const void* a, uint32_t a_len, const void* b, uint32_t b_len,

@@ -4,18 +4,21 @@ LDE and FRI.
 Counterpart of the Pallas path of `starks_tpu/ops/fused.py`
 (`FusedPlan`, `ntt_dif_pl`, `ntt_dit_pl`, `lde_pl`,
 `fri_round_schedule`, `fri_commit_unrolled_pl`). Arrays are [n, 8]
-int32 field tensors; each NTT stage is one launch of the DIF or DIT
-kernel (ops/plimbs.py), which reads its stage twiddles from the plain
-power table, so no [log n, n/2] stacked table exists at any size.
+int32 field tensors. The NTT kernels (ops/plimbs.py) read their stage
+twiddles from the plain power table, so no [log n, n/2] stacked table
+exists at any size.
 
 - `ntt_dif` is the constant-geometry (Pease) decimation-in-frequency
-  network: natural order in, bit-reversed out. `ntt_dit` is its
-  transpose (bit-reversed in, natural out).
+  network: natural order in, bit-reversed out, run as a few launches of
+  the DIF pass kernel, each several stages in shared memory. `ntt_dit`
+  is its transpose (bit-reversed in, natural out), one launch of the
+  DIT kernel per stage.
 - `lde`: iNTT (DIF) -> scale by 1/n -> stride-8 zero interleave (for
   c < n, rev_{log 8n}(c) = 8 * rev_{log n}(c), so zero-padding in the
   coefficient domain is a strided write) -> forward NTT (DIT).
-- `fri_commit`: per round, fold by 4 at the Fiat-Shamir point, then the
-  column tree, the query indices and the column and row bundles.
+- `fri_commit`: per round, fold by 4 at the Fiat-Shamir point (round r
+  reads round 0's u-table at stride 4^r), then the column tree, the
+  query indices and the column and row bundles.
 
 Bit-identical to the JAX package (tests/test_torch_kernels.py).
 """
@@ -51,10 +54,10 @@ def _inverse_order(table: torch.Tensor) -> torch.Tensor:
 
 class FusedPlan:
     """Device tables for one (steps, generator) configuration: the
-    plain power tables and the per-FRI-round u-tables."""
+    plain power tables and the FRI u-table."""
 
     def __init__(self, steps: int, precision: int, G1: int, G2: int,
-                 fri_rounds: int, device):
+                 device):
         self.steps = steps
         self.precision = precision
         fwd_big = power_table(G2, precision)
@@ -64,22 +67,16 @@ class FusedPlan:
         self.xs_big = fwd_big.to(device)
         self.n_inv_small = int_to_tensor(
             pow(steps, MODULUS - 2, MODULUS), device)
-        # Per-FRI-round u-tables: g_r^-i for g_r = G2^(4^r), i < N/4.
-        inv_big = _inverse_order(fwd_big)
-        q = precision // 4
-        i = torch.arange(q, dtype=torch.int64)
-        self.fri_inv_pows = torch.stack(
-            [inv_big[(i * 4 ** r) % precision] for r in range(fri_rounds)]
-        ).to(device)                                     # [R, N/4, 8]
+        # FRI u-table: G2^-i, i < N/4. Round r's g_r^-i, g_r = G2^(4^r),
+        # is entry i * 4^r (fold4's shift 2r), so one table serves all.
+        self.fri_inv_pows = _inverse_order(fwd_big)[:precision // 4].to(
+            device)                                      # [N/4, 8]
 
 
 def ntt_dif(x, table):
     """Constant-geometry DIF over [n, 8]: natural order in, bit-reversed
     out. `table` is the plain power table of the transform's root."""
-    logn = x.shape[0].bit_length() - 1
-    for t in range(logn):
-        x = plimbs.dif_stage(x, table, t)
-    return x
+    return plimbs.dif_transform(x, table)
 
 
 def ntt_dit(x, table):
@@ -115,15 +112,16 @@ def fri_round_schedule(precision: int, maxdeg_plus_1: int, cutoff: int):
 
 
 def fri_commit(values, leaf, lvl1, levels, root, fri_inv_pows, schedule,
-               eta, inv4, queries: int, exclude: int):
+               eta, queries: int, exclude: int):
     """FRI commit and query phases, one round after another at true
-    shapes. Round 0's row tree is the L tree (leaf, lvl1, levels, root).
-    Returns (col_roots [R][8], col_bundles [R][q, w_c],
-    row_bundles [R][4q, w_r], final values [n_final, 8])."""
+    shapes. Round 0's row tree is the L tree (leaf, lvl1, levels, root);
+    `fri_inv_pows` is round 0's u-table. Returns (col_roots [R][8],
+    col_bundles [R][q, w_c], row_bundles [R][4q, w_r], final values
+    [n_final, 8])."""
     col_roots, col_bundles, row_bundles = [], [], []
     for r, (_, q_r) in enumerate(schedule):
         sx = td.special_x_limbs(root)
-        column = plimbs.fold4(values, fri_inv_pows[r], sx, eta, inv4)
+        column = plimbs.fold4(values, fri_inv_pows, sx, eta, 2 * r)
         col_leaf = b2.limbs_to_words(column)
         c_lvl1, c_levels, c_root = merkle.tree_build(col_leaf)
         ys = td.pseudorandom_indices_dev(c_root, q_r, queries,

@@ -140,6 +140,16 @@ def mul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _cond_sub_p(g)
 
 
+def div4_16(x: torch.Tensor) -> torch.Tensor:
+    """x / 4 mod p for canonical x, exactly: p = 1 mod 4, so with
+    k = -x mod 4 the sum x + k*p is a multiple of 4 below 4p, and its
+    quarter is canonical."""
+    k = (-x[..., 0]) & 3
+    s, top = _carry(x + k[..., None] * _p_like(x))
+    above = torch.cat([s[..., 1:], top[..., None]], dim=-1)
+    return (s >> 2) | ((above & 3) << 14)
+
+
 def cube16(a: torch.Tensor) -> torch.Tensor:
     return mul16(mul16(a, a), a)
 

@@ -7,14 +7,16 @@ tensors it launches its hand-written kernel (csrc/kernels.cu, built by
 ops/_build.py) on the current stream, or raises; given CPU tensors it
 runs its plain PyTorch version, which repeats the kernel's arithmetic
 and is what the CPU tests hold against the JAX package. `LAUNCHES`
-counts each wrapper's kernel launches.
+counts each wrapper's kernel launches (`dif_transform` makes one per
+pass).
 
 Bounds on the card (32-byte elements, n elements per array): bytes over
 3.35 TB/s against 32-bit integer multiply-adds over the card's peak
 rate, 148 per modmul (chip_smoke.py). The NTT stages, scale, the L map
 and the elementwise ops (mul, add, sub, cube) are bound by their bytes;
-the D/B map and fold4, with 6 modmuls per element, by their operations.
-PERF.md gives each kernel's time beside its bound.
+the D/B map, fold4 and the whole DIF transform (log n stages of
+butterflies over one pass of bytes) by their operations. PERF.md gives
+each kernel's time beside its bound.
 """
 
 import torch
@@ -26,8 +28,12 @@ NUM_WORDS = fl.NUM_WORDS
 L16 = fl.to_limbs16
 
 LAUNCHES = dict.fromkeys(
-    ["dif_stage", "dit_stage", "scale", "db_map", "l_map", "fold4", "mul",
-     "add", "sub", "cube"], 0)
+    ["dif_stage", "dif_pass", "dit_stage", "scale", "db_map", "l_map",
+     "fold4", "mul", "add", "sub", "cube"], 0)
+
+# Stages per DIF pass: at most DIF_PASS_MAX_STAGES (a tile of 2^k
+# elements in shared memory), spread evenly over the fewest passes.
+DIF_PASS_MAX_STAGES = 10
 
 
 def reset_launches():
@@ -56,10 +62,12 @@ def _on_card(*tensors) -> bool:
     return True
 
 
-def _launch(name, device, *args):
-    """Launch starks_<name> on the current stream; tensors pass as
-    pointers, ints as uint32."""
-    fn = getattr(_build.load(), "starks_" + name)
+def _launch(name, device, *args, entry=None, launches=1):
+    """Call the C entry point `entry` (default starks_<name>) on the
+    current stream and count its `launches` kernel launches under
+    `name`; tensors pass as pointers, ints as uint32."""
+    entry = entry or "starks_" + name
+    fn = getattr(_build.load(), entry)
     for a in args:
         if not isinstance(a, torch.Tensor) and not 0 <= a < 2**31:
             raise ValueError(f"kernel {name}: size argument {a} out of "
@@ -69,7 +77,7 @@ def _launch(name, device, *args):
     rc = fn(*cargs, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name}: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += launches
 
 
 def _check_size(n: int):
@@ -115,13 +123,62 @@ def dif_stage(x, table, t: int):
     `dif_stage_x`, :367). The kernel reads the halves and the twiddle
     table by offset and writes the interleaved output itself, so no
     stacked twiddle table or interleave copy is built. Bound: bytes,
-    64n + 32*(n/2 >> t)."""
+    64n + 32*(n/2 >> t). The earlier design of the inverse NTT: the
+    proofs run `dif_transform`, and chip_smoke.py times the two against
+    each other."""
     n = x.shape[0]
     _check_stage(n, table, t)
     if not _on_card(x, table):
         return dif_stage_plain(x, table, t)
     out = torch.empty_like(x)
     _launch("dif_stage", x.device, x, table, out, n, t)
+    return out
+
+
+# -- A1, redesigned: the DIF transform in passes of several stages ------
+
+def dif_pass_stages(n: int) -> int:
+    """Stages per pass for an n-point transform: the fewest passes of
+    at most DIF_PASS_MAX_STAGES, as even as they go."""
+    logn = n.bit_length() - 1
+    passes = -(-logn // DIF_PASS_MAX_STAGES)
+    return -(-logn // passes)
+
+
+def dif_transform_plain(x, table):
+    for t in range(x.shape[0].bit_length() - 1):
+        x = dif_stage_plain(x, table, t)
+    return x
+
+
+def dif_transform(x, table, k: int | None = None):
+    """The whole Pease DIF network over x [n, 8] (natural order in,
+    bit-reversed out), the same as `dif_stage` for t = 0 .. log n - 1,
+    in ceil(log n / k) launches of `dif_pass_kernel`, each running up to
+    k consecutive stages on tiles of 2^k elements in shared memory (k
+    defaults to `dif_pass_stages(n)`).
+
+    Replaces the chain of `_dif_kernel` launches of `ntt_dif_pl`
+    (starks_tpu/ops/plimbs.py:154 via `dif_stage_x`, :355), one per
+    stage. Bound: operations, log n stages of n/2 butterflies (a modmul
+    and two adds each); bytes 64n + 32 * n/2 per pass."""
+    n = x.shape[0]
+    _check_size(n)
+    if table.shape[0] < n // 2:
+        raise ValueError("twiddle table shorter than n/2")
+    logn = n.bit_length() - 1
+    k = dif_pass_stages(n) if k is None else k
+    if not 1 <= k <= DIF_PASS_MAX_STAGES:
+        raise ValueError(f"stages per pass {k} not in [1, "
+                         f"{DIF_PASS_MAX_STAGES}]")
+    k = min(k, logn)
+    if not _on_card(x, table):
+        return dif_transform_plain(x, table)
+    passes = -(-logn // k)
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x) if passes > 1 else out
+    _launch("dif_pass", x.device, x, table, out, scratch, n, k,
+            entry="starks_ntt_dif", launches=passes)
     return out
 
 
@@ -247,7 +304,7 @@ def l_map(d, p, b, cp, cb):
 
 # -- A6: FRI fold by 4 --------------------------------------------------
 
-def fold4_plain(values, ip, sx, eta, inv4):
+def fold4_plain(values, ip, sx, eta, shift: int = 0):
     q = values.shape[0] // 4
     y0, y1, y2, y3 = L16(values).reshape(4, q, -1)
     e0, d02 = fl.add16(y0, y2), fl.sub16(y0, y2)
@@ -255,35 +312,39 @@ def fold4_plain(values, ip, sx, eta, inv4):
     a0, a2 = fl.add16(e0, e1), fl.sub16(e0, e1)
     h = fl.mul16(d13, L16(eta))
     a1, a3 = fl.sub16(d02, h), fl.add16(d02, h)
-    u = fl.mul16(L16(sx), L16(ip[:q]))
+    i = torch.arange(q, device=ip.device)
+    u = fl.mul16(L16(sx), L16(ip[i << shift]))
     acc = fl.add16(fl.mul16(u, a3), a2)
     acc = fl.add16(fl.mul16(u, acc), a1)
     acc = fl.add16(fl.mul16(u, acc), a0)
-    return fl.from_limbs16(fl.mul16(acc, L16(inv4)))
+    return fl.from_limbs16(fl.div4_16(acc))
 
 
-def fold4(values, ip, sx, eta, inv4):
+def fold4(values, ip, sx, eta, shift: int = 0):
     """FRI fold by 4: values [n, 8] -> column [n/4, 8]. With q = n/4 and
     y_j = values[j*q + i]: the 4-point DFT of (y0..y3) using eta, Horner
-    at u = sx * ip[i], times inv4. ip holds g^-i for i < q.
+    at u = sx * ip[i << shift], divided by 4. ip holds g^-i of round 0's
+    generator; round r reads it at stride 4^r (shift = 2r), where it
+    holds that round's g_r^-i.
 
     Replaces `_fold4_kernel` (starks_tpu/ops/plimbs.py:212, launched by
-    `fold4_t`, :483 and :472). The four quarters are read by offset.
-    Bound: operations, 6 modmuls per output (bytes 48n: values and ip
-    in; the column out)."""
+    `fold4_t`, :483 and :472), which multiplies by 1/4 at the end; here
+    that is an exact division (`limbs.div4_16`), the same canonical
+    value. The four quarters are read by offset. Bound: operations, 5
+    modmuls per output (bytes 48n: values and ip in; the column out)."""
     n = values.shape[0]
     _check_size(n)
     q = n // 4
-    if n < 4 or ip.shape[0] < q:
-        raise ValueError("fold4 needs n >= 4 and q entries of ip")
-    for t in (sx, eta, inv4):
+    if n < 4 or not 0 <= shift < 31 or ip.shape[0] <= (q - 1) << shift:
+        raise ValueError("fold4 needs n >= 4 and ip[(q - 1) << shift]")
+    for t in (sx, eta):
         if t.shape != (NUM_WORDS,):
-            raise ValueError("sx, eta and inv4 must be [8] elements")
-    if not _on_card(values, ip, sx, eta, inv4):
-        return fold4_plain(values, ip, sx, eta, inv4)
+            raise ValueError("sx and eta must be [8] elements")
+    if not _on_card(values, ip, sx, eta):
+        return fold4_plain(values, ip, sx, eta, shift)
     out = torch.empty((q, NUM_WORDS), dtype=torch.int32,
                       device=values.device)
-    _launch("fold4", values.device, values, ip, sx, eta, inv4, out, q)
+    _launch("fold4", values.device, values, ip, sx, eta, out, q, shift)
     return out
 
 

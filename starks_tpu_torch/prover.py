@@ -84,8 +84,7 @@ class _FusedSetup:
         self.G1, self.G2 = G1, G2
         self.schedule = fused.fri_round_schedule(
             precision, steps * 2, config.fri_base_cutoff)
-        self.plan = fused.FusedPlan(steps, precision, G1, G2,
-                                    len(self.schedule), device)
+        self.plan = fused.FusedPlan(steps, precision, G1, G2, device)
 
         last = pow(G2, (steps - 1) * ext, MODULUS)
         h = pow(G2, steps, MODULUS)
@@ -96,7 +95,6 @@ class _FusedSetup:
         self.h_pows = ints_to_tensor(
             [pow(h, i, MODULUS) for i in range(ext)], device)
         self.eta_l = int_to_tensor(pow(G2, precision // 4, MODULUS), device)
-        self.inv4_l = int_to_tensor(hf.inv(4), device)
 
         # 1/Z2 with Z2(x) = (x - 1)(x - last): a constant of the config,
         # inverted once on the host (zeros map to zero).
@@ -186,7 +184,7 @@ def _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
     # 12. FRI on L (deg < 2*steps), reusing the L tree.
     col_roots, col_bs, row_bs, final = fused.fri_commit(
         l_vals, l_leaf, l_lvl1, l_levels, l_root, su.plan.fri_inv_pows,
-        su.schedule, su.eta_l, su.inv4_l, cfg.fri_queries, ext)
+        su.schedule, su.eta_l, cfg.fri_queries, ext)
     timer.mark("fri")
 
     sections = [("m_root", m_root), ("l_root", l_root),

@@ -50,6 +50,19 @@ def test_cube_matches_jax():
     assert np.array_equal(fl.to_jax_limbs(fl.cube(ints_to_tensor(a))), want)
 
 
+def test_div4_matches_jax_mul_by_inverse_of_4():
+    """The exact division fold4 ends with equals JAX's multiply by 1/4
+    (the last step of its fold), on every residue of x mod 4."""
+    a, _ = _operands()
+    a += [M - 3, M - 4, 3, 4, 5]
+    inv4 = pow(4, M - 2, M)
+    want = np.asarray(jax.jit(jfl.mul)(ints_to_limbs(a),
+                                       ints_to_limbs([inv4] * len(a))))
+    got = fl.from_limbs16(fl.div4_16(fl.to_limbs16(ints_to_tensor(a))))
+    assert np.array_equal(fl.to_jax_limbs(got), want)
+    assert tensor_to_ints(got) == [x * inv4 % M for x in a]
+
+
 def test_jax_limbs_round_trip():
     a, _ = _operands()
     limbs = ints_to_limbs(a)

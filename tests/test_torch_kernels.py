@@ -104,6 +104,46 @@ def test_l_map_matches_xla():
     assert _same(plimbs.l_map(d, p, b, cp, cb), want)
 
 
+def _jax_fold(values, ip, sx, eta, inv4):
+    """The fold of JAX `fri_commit_unrolled` (starks_tpu/ops/fused.py),
+    on the XLA field ops: round r passes its own u-table row."""
+    q = values.shape[0] // 4
+    y0, y1, y2, y3 = (values[j * q:(j + 1) * q] for j in range(4))
+    e0, d02, e1, d13 = _add(y0, y2), _sub(y0, y2), _add(y1, y3), _sub(y1, y3)
+    a0, a2 = _add(e0, e1), _sub(e0, e1)
+    h = _mul(d13, jnp.broadcast_to(eta, d13.shape))
+    a1, a3 = _sub(d02, h), _add(d02, h)
+    u = _mul(jnp.broadcast_to(sx, d13.shape), ip[:q])
+    acc = _add(_mul(u, a3), a2)
+    acc = _add(_mul(u, acc), a1)
+    acc = _add(_mul(u, acc), a0)
+    return _mul(acc, jnp.broadcast_to(inv4, d13.shape))
+
+
+def test_fold4_shift_matches_jax_fold_every_round():
+    """Round r of a small schedule: fold4 with shift 2r on the port's one
+    u-table equals the JAX fold with the JAX plan's round-r table."""
+    from starks_tpu.utils import hostfield as hf
+    from starks_tpu.utils.conversions import int_to_limbs
+    from starks_tpu_torch.utils.conversions import int_to_tensor
+    args = _plan_args(32)
+    precision, G2 = args[1], args[3]
+    schedule = fused.fri_round_schedule(precision, 2 * args[0], 2)
+    assert len(schedule) == 3
+    jplan = jfused.FusedPlan.get(*args, len(schedule), pallas=True)
+    plan = fused.FusedPlan(*args, "cpu")
+    eta, inv4 = pow(G2, precision // 4, M), hf.inv(4)
+    for r, (n_r, _) in enumerate(schedule):
+        jv, v = _rand(n_r, 100 + r, edge=True)
+        jsx, sx = _rand(1, 110 + r)
+        want = _jax_fold(jv, jplan.fri_inv_pows[r], jsx,
+                         jnp.asarray(int_to_limbs(eta))[None],
+                         jnp.asarray(int_to_limbs(inv4))[None])
+        got = plimbs.fold4(v, plan.fri_inv_pows, sx[0], int_to_tensor(eta),
+                           2 * r)
+        assert _same(got, want), r
+
+
 def test_fold4_matches_fri_fold():
     from starks_tpu.ops import ntt as ntt_mod
     from starks_tpu.ops.fri_fold import fold4 as jfold4
@@ -119,8 +159,7 @@ def test_fold4_matches_fri_fold():
     want = jax.jit(jfold4)(jv, dom.powers, jnp.asarray(int_to_limbs(eta)),
                            jsx[0], jnp.asarray(int_to_limbs(inv4)))
     inv_pows = fused._inverse_order(fused.power_table(G2, n))[:n // 4]
-    got = plimbs.fold4(v, inv_pows, sx[0], int_to_tensor(eta),
-                       int_to_tensor(inv4))
+    got = plimbs.fold4(v, inv_pows, sx[0], int_to_tensor(eta))
     assert _same(got, want)
 
 
@@ -152,6 +191,32 @@ def test_cube_matches_xla():
 
 # -- NTT, LDE and the plan tables ------------------------------------------
 
+# (n, stages per pass): at least two passes, the last one short.
+DIF_PASSES = [(2 ** 6, 4), (2 ** 7, 3), (2 ** 8, 3), (2 ** 9, 4),
+              (2 ** 10, 4)]
+
+
+@pytest.mark.parametrize("n,k", DIF_PASSES)
+def test_dif_transform_plain_matches_stage_chain(n, k):
+    _, x = _rand(n, 120, edge=True)
+    _, tab = _rand(n, 121)
+    want = x
+    for t in range(n.bit_length() - 1):
+        want = plimbs.dif_stage_plain(want, tab, t)
+    assert plimbs.dif_transform(x, tab, k).equal(want)
+    assert plimbs.dif_transform(x, tab).equal(want)
+
+
+def test_dif_pass_stages():
+    assert [plimbs.dif_pass_stages(2 ** L) for L in (1, 6, 10, 13, 16, 20,
+                                                      21)] == [
+        1, 6, 10, 7, 8, 10, 7]
+    x = _rand(64, 122)[1]
+    for k in (0, plimbs.DIF_PASS_MAX_STAGES + 1):
+        with pytest.raises(ValueError):
+            plimbs.dif_transform(x, x, k)
+
+
 def test_ntt_dif_dit_match_fused():
     n = 512
     g = pow(7, (M - 1) // n, M)
@@ -166,26 +231,33 @@ def test_ntt_dif_dit_match_fused():
                  jax.jit(jfused.ntt_dit)(jx, tw_stack))
 
 
-def _plan_args(steps, rounds=2, ext=8):
+def _plan_args(steps, ext=8):
     precision = steps * ext
     G2 = pow(7, (M - 1) // precision, M)
-    return steps, precision, pow(G2, ext, M), G2, rounds
+    return steps, precision, pow(G2, ext, M), G2
 
 
 def test_plan_tables_match_jax():
-    args = _plan_args(64)
-    jplan = jfused.FusedPlan.get(*args, pallas=True)    # plain tables
+    """One [N/4, 8] u-table; at stride 4^r it is row r of the JAX plan's
+    stacked [R, N/4] tables (on the q_r = N/4^(r+1) entries round r
+    reads)."""
+    args, rounds = _plan_args(64), 3
+    jplan = jfused.FusedPlan.get(*args, rounds, pallas=True)  # plain tables
     plan = fused.FusedPlan(*args, "cpu")
     assert _same(plan.xs_big, jplan.xs_big)
     assert _same(plan.inv_small, jplan.tw_inv_small)
     assert _same(plan.n_inv_small[None], jplan.n_inv_small[None])
-    assert _same(plan.fri_inv_pows.reshape(-1, 8),
-                 jplan.fri_inv_pows.reshape(-1, 16))
+    q = args[1] // 4
+    assert plan.fri_inv_pows.shape == (q, 8)
+    for r in range(rounds):
+        q_r = q // 4 ** r
+        assert _same(plan.fri_inv_pows[::4 ** r][:q_r],
+                     jplan.fri_inv_pows[r][:q_r])
 
 
 def test_lde_matches_lde_fused():
     args = _plan_args(64)
-    jplan = jfused.FusedPlan.get(*args)                 # stacked twiddles
+    jplan = jfused.FusedPlan.get(*args, 2)              # stacked twiddles
     plan = fused.FusedPlan(*args, "cpu")
     jtrace, trace = _rand(64, 51)
     want = jax.jit(jfused.lde_fused)(jtrace, jplan.tw_inv_small,
@@ -224,12 +296,13 @@ def _host_cases():
     d, b = _rand(n, 65)[1], _rand(n, 66)[1]
     k, z, cp, cb = (_rand(ln, s)[1] for ln, s in
                     ((64, 67), (8, 68), (8, 69), (8, 70)))
-    ip = _rand(n // 4, 71)[1]
     s1, s2, s3 = (_rand(1, s)[1][0] for s in (72, 73, 74))
     q = n // 4
     return {
         "dif_stage": (plimbs.dif_stage_plain(x, tab, 2),
                       [x, tab], [n, 2], (n, 8)),
+        "dif_pass": (plimbs.dif_transform_plain(x, tab),   # passes 3, 3, 2
+                     [x, tab], [n, 3], (n, 8), (n, 8)),
         "dit_stage": (plimbs.dit_stage_plain(x, tab, 5),
                       [x, tab], [n, 5], (n, 8)),
         "scale": (plimbs.scale_plain(x, s1), [x, s1], [n], (n, 8)),
@@ -238,8 +311,8 @@ def _host_cases():
                    (n, 8), (n, 8)),
         "l_map": (plimbs.l_map_plain(d, p, b, cp, cb),
                   [d, p, b, cp, 8, cb, 8], [n], (n, 8)),
-        "fold4": (plimbs.fold4_plain(x, ip, s1, s2, s3),
-                  [x, ip, s1, s2, s3], [q], (q, 8)),
+        "fold4": (plimbs.fold4_plain(x[:q], tab, s1, s2, 4),  # round 2
+                  [x[:q], tab, s1, s2], [q // 4, 4], (q // 4, 8)),
         "mul": (plimbs.mul_plain(x, cp), [x, n, cp, 8], [n], (n, 8)),
         "add": (plimbs.add_plain(s1[None], p), [s1, 1, p, n], [n], (n, 8)),
         "sub": (plimbs.sub_plain(z, xs), [z, 8, xs, n], [n], (n, 8)),
@@ -247,15 +320,59 @@ def _host_cases():
     }
 
 
-@pytest.mark.parametrize("name", sorted(plimbs.LAUNCHES))
-def test_kernel_body_matches_plain(host_kernels, name):
-    want, ins, ints, *out_shapes = _host_cases()[name]
+def _host_call(lib, entry, ins, ints, out_shapes):
+    """Call a g++-built entry point; returns its output tensors."""
     outs = [torch.empty(s, dtype=torch.int32) for s in out_shapes]
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in ins + outs] + ints + [None]
-    assert getattr(host_kernels, "starks_" + name)(*args) == 0
+    assert getattr(lib, entry)(*args) == 0
+    return outs
+
+
+ENTRY = {"dif_pass": "starks_ntt_dif"}
+
+
+@pytest.mark.parametrize("name", sorted(plimbs.LAUNCHES))
+def test_kernel_body_matches_plain(host_kernels, name):
+    want, ins, ints, *out_shapes = _host_cases()[name]
+    outs = _host_call(host_kernels, ENTRY.get(name, "starks_" + name), ins,
+                      ints, out_shapes)
     want = want if isinstance(want, tuple) else (want,)
     assert all(torch.equal(o, w) for o, w in zip(outs, want))
+
+
+@pytest.mark.parametrize("n,k", DIF_PASSES)
+def test_host_ntt_dif_matches_stage_chain_and_jax(host_kernels, n, k):
+    """The pass kernel's group and twiddle arithmetic (shared with the
+    CUDA build) over several passes, the last one short."""
+    g = pow(7, (M - 1) // n, M)
+    table = jfused._power_table_np(g, n)
+    jx, x = _rand(n, 130, edge=True)
+    tab = fl.from_jax_limbs(table)
+    out, _ = _host_call(host_kernels, "starks_ntt_dif", [x, tab], [n, k],
+                        [(n, 8), (n, 8)])
+    assert out.equal(plimbs.dif_transform_plain(x, tab))
+    want = jax.jit(jfused.ntt_dif)(jx, jnp.asarray(
+        jfused._stacked_twiddles(table)))
+    assert _same(out, want)
+
+
+def test_host_mul_matches_plain_on_edge_pairs(host_kernels):
+    """field::mul as g++ builds it (the plain C++ branch of
+    csrc/field.cuh) on the operand pairs that reach every carry path of
+    the folds (chip_smoke.mul_edge_pairs), and on the field's edge
+    values."""
+    from chip_smoke import mul_edge_pairs
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    va, vb = mul_edge_pairs(constructed=256)
+    a, b = ints_to_tensor(va), ints_to_tensor(vb)
+    n = a.shape[0]
+    (out,) = _host_call(host_kernels, "starks_mul", [a, n, b, n], [n],
+                        [(n, 8)])
+    assert out.equal(plimbs.mul_plain(a, b))
+    got = [int.from_bytes(out[i].numpy().tobytes(), "little")
+           for i in range(0, n, 97)]
+    assert got == [va[i] * vb[i] % M for i in range(0, n, 97)]
 
 
 # -- dispatch ---------------------------------------------------------------
