@@ -13,16 +13,20 @@ Phases (any failure exits non-zero and prints no result):
      p - 1, p - 2, 2^255) at the shapes of a 2^16-step proof: the NTT
      stages at their first, middle and last stage; the DIF transform at
      2^13 and 2^16 points for the chosen stages per pass and one that
-     leaves a short last pass; fold4 at every FRI round's shape and
-     shift; the elementwise ops with full, 8-periodic and constant
-     operands on either side; mul on 2^20 products led by edge pairs
-     that reach every carry path of the modmul. Each kernel's device
-     time per launch (CUDA events around a run of launches queued
-     behind a spin on the card), its per-call cost (host clock around a
-     run of calls) and its plain version's per-call cost, beside its
-     bound; then the DIF transform for each stages-per-pass width, and
-     the stage-by-stage DIF against the transform in turns (old, new,
-     new, old);
+     leaves a short last pass; the DIT transform at 2^19 points on the
+     LDE's compact coefficients and on a general input, and at 2^16
+     with a short first pass; the D/B map in both designs;
+     fold4 at every FRI round's shape and shift; the elementwise ops
+     with full, 8-periodic and constant operands on either side; mul on
+     2^20 products led by edge pairs that reach every carry path of the
+     modmul. Each kernel's device time per launch (CUDA events around a
+     run of launches queued behind a spin on the card), its per-call
+     cost (host clock around a run of calls) and its plain version's
+     per-call cost, beside its bound; then the DIF and DIT transforms
+     for each stages-per-pass width 4-10 (the DIT at 2^16 and 2^19,
+     general and compact input), the stage-by-stage
+     DIF and DIT against the transforms, and the first D/B map design
+     against the second, each in turns (old, new, new, old);
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
@@ -41,8 +45,9 @@ Phases (any failure exits non-zero and prints no result):
   7. every kernel's launches on each main path: the steady MiMC 2^16,
      fib-square 2^13 and 2^16 proofs and the MiMC-as-AIR proof, each
      counted alone (counts set to 0 just before it, read just after);
-     each kernel > 0 on every path that runs it, no stage-by-stage DIF
-     launch on any path, and at most one DIF pass launch per 8 stages;
+     each kernel > 0 on every path that runs it, no launch of an earlier
+     design (stage-by-stage DIF or DIT, the first D/B map) on any path,
+     and at most two DIF and two DIT pass launches per column;
      one JSON line of kernel rows, each with the count of its own main
      path and the counts of every path, and the result line.
 
@@ -83,9 +88,11 @@ REPS = 50                     # launches or calls per timing
 # Least 32-bit integer operations per field op in csrc/field.cuh. A modmul
 # takes 64 (schoolbook) + 8 + 2 (folds by 351) variable 32x32->64
 # products, each two multiply-adds (low and high word); all carry adds
-# are left out. An add or sub takes at least one operation per word. So
-# the operations bound is a least time.
+# are left out. A square (field::sqr) computes its 28 cross products
+# once: 36 products before the same folds. An add or sub takes at least
+# one operation per word. So the operations bound is a least time.
 OPS_MUL = 2 * (64 + 8 + 2)
+OPS_SQR = 2 * (36 + 8 + 2)
 OPS_ADD = 8
 
 SRC = "starks_tpu_torch/csrc/kernels.cu"
@@ -93,8 +100,10 @@ REPLACES = {
     "dif_stage": "starks_tpu/ops/plimbs.py:154",
     "dif_pass": "starks_tpu/ops/plimbs.py:154",
     "dit_stage": "starks_tpu/ops/plimbs.py:161",
+    "dit_pass": "starks_tpu/ops/plimbs.py:161",
     "scale": "starks_tpu/ops/plimbs.py:175",
     "db_map": "starks_tpu/ops/plimbs.py:181",
+    "db_map_v1": "starks_tpu/ops/plimbs.py:181",
     "l_map": "starks_tpu/ops/plimbs.py:203",
     "fold4": "starks_tpu/ops/plimbs.py:212",
     "mul": "starks_tpu/ops/plimbs.py:149",
@@ -105,7 +114,7 @@ REPLACES = {
 # The main paths, each counted alone, and the kernels each must launch.
 # A kernel's row reports the count of the first path here that runs it:
 # the 2^16-step paths first, whose shapes phase 2 times.
-NTT_FRI = ["dif_pass", "dit_stage", "scale", "fold4"]
+NTT_FRI = ["dif_pass", "dit_pass", "scale", "fold4"]
 FIB = f"fib-square {SMALL_STEPS}"
 FIB_BIG = f"fib-square {BIG_STEPS}"
 MIMC = f"MiMC {BIG_STEPS}"
@@ -191,6 +200,14 @@ def card_clocks(device):
     return torch.cuda.get_device_properties(device).multi_processor_count, mhz
 
 
+def dit_ops(n, ext=1):
+    """Least operations of an n-point DIT transform whose input is zero
+    off the multiples of ext: its first log2(ext) stages only copy, the
+    other stages take n/2 butterflies of a modmul, an add and a sub."""
+    stages = n.bit_length() - 1 - (ext.bit_length() - 1)
+    return stages * n // 2 * (OPS_MUL + 2 * OPS_ADD)
+
+
 def kernel_cases(steps, device):
     """(name, wrapper, plain, [args, ...], bytes, ops, warm) for each
     kernel at the shapes a `steps`-step proof gives it, with structured
@@ -221,6 +238,7 @@ def kernel_cases(steps, device):
     x_small, tw_small = arr(steps), arr(steps)
     x_13, tw_13 = arr(SMALL_STEPS), arr(SMALL_STEPS)
     x_big, tw_big = arr(n_big), arr(n_big)
+    coeffs = arr(steps)                         # the LDE's compact input
     p, xs, iz2 = arr(n_big), arr(n_big), arr(n_big)
     k_tab, zni = arr(EXT * len(CONSTS)), arr(EXT)
     d, b, cp, cb = arr(n_big), arr(n_big), arr(EXT), arr(EXT)
@@ -239,7 +257,7 @@ def kernel_cases(steps, device):
         logn = x.shape[0].bit_length() - 1
         return [(x, tw, t) for t in (0, logn // 2, logn - 1)]
 
-    def short_k(n):              # stages per pass with a short last pass
+    def short_k(n):              # stages per pass that leave a short pass
         logn = n.bit_length() - 1
         return next(k for k in range(plimbs.dif_pass_stages(n) - 1, 0, -1)
                     if logn % k)
@@ -264,10 +282,21 @@ def kernel_cases(steps, device):
          steps // 2 * (OPS_MUL + 2 * OPS_ADD), True),
         ("scale", plimbs.scale, plimbs.scale_plain, [(x_small, s)],
          ELEM * (2 * steps + 1), steps * OPS_MUL, True),
+        ("dit_pass", plimbs.dit_transform,
+         lambda x, tw, k=None, ext=1: plimbs.dit_transform_plain(x, tw,
+                                                                  ext),
+         [(coeffs, tw_big, None, EXT), (x_big, tw_big),
+          (x_small, tw_small), (x_small, tw_small, short_k(steps))],
+         ELEM * (steps + n_big + n_big // 2),   # the LDE's: compact in
+         dit_ops(n_big, EXT), True),
         ("dit_stage", plimbs.dit_stage, plimbs.dit_stage_plain,
          stages(x_big, tw_big), stage_bytes(n_big),
          n_big // 2 * (OPS_MUL + 2 * OPS_ADD), True),
         ("db_map", plimbs.db_map, plimbs.db_map_plain,
+         [(p, xs, k_tab, zni, iz2, last, slope, ia, EXT)],
+         ELEM * (5 * n_big + k_tab.shape[0] + EXT + 3),
+         n_big * (5 * OPS_MUL + OPS_SQR + 5 * OPS_ADD), False),
+        ("db_map_v1", plimbs.db_map_v1, plimbs.db_map_plain,
          [(p, xs, k_tab, zni, iz2, last, slope, ia, EXT)],
          ELEM * (5 * n_big + k_tab.shape[0] + EXT + 3),
          n_big * (6 * OPS_MUL + 5 * OPS_ADD), False),
@@ -287,7 +316,7 @@ def kernel_cases(steps, device):
          [(x_big, p), (zni, xs), (b, const)], ELEM * 3 * n_big,
          n_big * OPS_ADD, False),
         ("cube", plimbs.cube, plimbs.cube_plain, [(x_big,)],
-         ELEM * 2 * n_big, n_big * 2 * OPS_MUL, False),
+         ELEM * 2 * n_big, n_big * (OPS_MUL + OPS_SQR), False),
     ]
 
 
@@ -452,6 +481,93 @@ def phase_dif_designs(device):
               f"transform: " + "; ".join(turns), flush=True)
 
 
+def phase_dit_designs(device):
+    """Phase 2, continued: the DIT transform at 2^16 and 2^19 points for
+    each stages-per-pass width 4-10 (a short first pass where the width
+    does not divide log n), on a general input and on compact coefficients (x at multiples of 8,
+    as the LDE gives it), each equal to the plain stage chain; then the
+    stage-by-stage network (one dit_stage launch per stage) against the
+    transform, in turns (old, new, new, old)."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    gen = torch.Generator().manual_seed(SEED + 2)
+    sms, mhz = card_clocks(device)
+    ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    for n in (BIG_STEPS, BIG_STEPS * EXT):
+        logn = n.bit_length() - 1
+        x, tw = rand_elems(n, gen, device), rand_elems(n, gen, device)
+        coeffs = rand_elems(n // EXT, gen, device)
+        want = plimbs.dit_transform_plain(x, tw)
+        want_c = plimbs.dit_transform_plain(coeffs, tw, EXT)
+        chosen = plimbs.dif_pass_stages(n)
+        bound, bound_c = (dit_ops(n, e) / ops_per_s * 1e3 for e in (1, EXT))
+        print(f"  DIT n = 2^{logn}: bound {bound:.6f} ms (operations), "
+              f"compact {bound_c:.6f} ms", flush=True)
+        for k in range(4, plimbs.DIF_PASS_MAX_STAGES + 1):
+            passes = -(-logn // k)
+            first = logn - (passes - 1) * k
+            check(torch.equal(plimbs.dit_transform(x, tw, k), want),
+                  f"DIT transform, n = {n}, k = {k}, differs from plain")
+            dev, per_call = kernel_times(
+                lambda: plimbs.dit_transform(x, tw, k), device)
+            mark = " (chosen)" if k == chosen else ""
+            line = (f"  DIT n = 2^{logn}, {k:2d} stages per pass "
+                    f"({passes} launches, first {first}){mark}: device "
+                    f"{dev:.6f} ms, per-call {per_call:.6f} ms")
+            if first >= EXT.bit_length() - 1:
+                check(torch.equal(plimbs.dit_transform(coeffs, tw, k, EXT),
+                                  want_c),
+                      f"compact DIT transform, n = {n}, k = {k}, differs "
+                      f"from plain")
+                dev, per_call = kernel_times(
+                    lambda: plimbs.dit_transform(coeffs, tw, k, EXT), device)
+                line += (f"; compact: device {dev:.6f} ms, per-call "
+                         f"{per_call:.6f} ms")
+            print(line, flush=True)
+
+        def old():
+            y = x
+            for t in range(logn - 1, -1, -1):
+                y = plimbs.dit_stage(y, tw, t)
+            return y
+
+        check(torch.equal(old(), want), "stage-by-stage DIT differs")
+        turns = []
+        for label, fn in (("old", old),
+                          ("new", lambda: plimbs.dit_transform(x, tw)),
+                          ("new", lambda: plimbs.dit_transform(x, tw)),
+                          ("old", old)):
+            dev, per_call = kernel_times(fn, device)
+            turns.append(f"{label} {dev:.6f} / {per_call:.6f}")
+        print(f"  DIT n = 2^{logn}, stage by stage ({logn} launches) "
+              f"against the transform, device / per-call ms per "
+              f"transform: " + "; ".join(turns), flush=True)
+
+
+def phase_db_designs(device):
+    """Phase 2, continued: the D/B map as first written (db_map_v1)
+    against db_map at a 2^16-step proof's shape, L2 flushed before each
+    launch, in turns (old, new, new, old)."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    gen = torch.Generator().manual_seed(SEED + 3)
+    n = BIG_STEPS * EXT
+    p, xs, iz2 = (rand_elems(n, gen, device) for _ in range(3))
+    k_tab, zni = rand_elems(EXT * len(CONSTS), gen, device), rand_elems(
+        EXT, gen, device)
+    last, slope, ia = rand_elems(3, gen, device)
+    args = (p, xs, k_tab, zni, iz2, last, slope, ia, EXT)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
+    turns = []
+    for label, fn in (("old", plimbs.db_map_v1), ("new", plimbs.db_map),
+                      ("new", plimbs.db_map), ("old", plimbs.db_map_v1)):
+        dev, per_call = kernel_times(lambda: fn(*args), device, flush)
+        turns.append(f"{label} {dev:.6f} / {per_call:.6f}")
+    print(f"  D/B map n = 2^{n.bit_length() - 1}, first design against "
+          f"db_map, device (L2 flushed) / per-call ms: " + "; ".join(turns),
+          flush=True)
+
+
 def phase_build(build) -> str:
     """Phase 1: the card's name and power limit (returned), the kernel
     build, its register report and SASS counts."""
@@ -465,9 +581,7 @@ def phase_build(build) -> str:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         kernel = re.search(r"Compiling entry function '(\w+)'", line)
         if kernel:
-            km = FIELD_KERNEL.match(kernel.group(1))
-            print(f"    {km.group(1) if km else kernel.group(1)}:",
-                  flush=True)
+            print(f"    {kernel_label(kernel.group(1))}:", flush=True)
         elif "registers" in line or "spill" in line:
             print(f"      {line.strip()}", flush=True)
     print_sass_counts(lib_path, build)
@@ -490,8 +604,7 @@ def print_sass_counts(lib_path, build):
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            km = FIELD_KERNEL.match(m.group(1))
-            kernel = km.group(1) if km else m.group(1)
+            kernel = kernel_label(m.group(1))
             counts[kernel] = [0, 0, 0]
             continue
         op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
@@ -677,8 +790,18 @@ def phase_profiles(device, mimc_steady_s, air_steady_s):
 # The field kernels, as the profiler and cuobjdump name them (mangled
 # or not).
 FIELD_KERNEL = re.compile(
-    r"^(?:void )?(?:_Z\d+)?(dif_pass|dif|dit|scale|db|l|fold4|mul|add|sub"
-    r"|cube)_kernel(?:\(|P|$)")
+    r"^(?:void )?(?:_Z\d+)?(dif_pass|dif|dit_pass|dit|scale|db_v1|db|l|fold4"
+    r"|mul|add|sub|cube)_kernel(?:ILi(\d+)EEv|<(\d+)>)?(?:\(|P|$)")
+
+
+def kernel_label(name) -> str:
+    """A field kernel's short name, with its template argument if any
+    (dit_pass<2>); other names as they are."""
+    m = FIELD_KERNEL.match(name)
+    if not m:
+        return name
+    arg = m.group(2) or m.group(3)
+    return f"{m.group(1)}<{arg}>" if arg else m.group(1)
 
 
 def profile_proof(run, device, steady_s):
@@ -715,22 +838,24 @@ def profile_proof(run, device, steady_s):
 
 
 def phase_launches(rows, launches):
-    """Phase 7: each path launched every kernel it runs, the DIF only
-    through the multi-stage passes (at most one launch per 8 stages:
-    <= 2 per 2^16-point and <= 4 per fib-square 2^13 proof, two
-    columns); each kernel row gets the count of its own main path (0 for
-    the stage-by-stage DIF, which no path runs) and those of every
-    path."""
+    """Phase 7: each path launched every kernel it runs, the NTTs only
+    through the multi-stage passes (at most two per column: <= 3 DIF or
+    DIT pass launches per MiMC 2^16 proof, one column, and <= 4 per
+    fib-square 2^13 proof, two columns); each kernel row gets the count
+    of its own main path (0 for the earlier designs, which no path
+    runs) and those of every path."""
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,
                   f"kernel {name} never ran on the {path} path")
-        check(launches[path]["dif_stage"] == 0,
-              f"the stage-by-stage DIF ran on the {path} path")
-    check(launches[MIMC]["dif_pass"] <= 3,
-          f"{launches[MIMC]['dif_pass']} DIF launches on the {MIMC} path")
-    check(launches[FIB]["dif_pass"] <= 4,
-          f"{launches[FIB]['dif_pass']} DIF launches on the {FIB} path")
+        for name in ("dif_stage", "dit_stage", "db_map_v1"):
+            check(launches[path][name] == 0,
+                  f"the earlier design {name} ran on the {path} path")
+    for name in ("dif_pass", "dit_pass"):
+        check(launches[MIMC][name] <= 3,
+              f"{launches[MIMC][name]} {name} launches on the {MIMC} path")
+        check(launches[FIB][name] <= 4,
+              f"{launches[FIB][name]} {name} launches on the {FIB} path")
     for name, row in rows.items():
         row["path"] = next((p for p, ks in PATH_KERNELS.items()
                             if name in ks), None)
@@ -761,6 +886,8 @@ def main() -> int:
           f"shapes", flush=True)
     rows = phase_kernels(BIG_STEPS, device)
     phase_dif_designs(device)
+    phase_dit_designs(device)
+    phase_db_designs(device)
 
     print("phase 3: main path, small proof", flush=True)
     phase_small_proof(SMALL_STEPS, device)

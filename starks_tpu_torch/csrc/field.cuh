@@ -252,13 +252,9 @@ __device__ __forceinline__ Fe fold_dev(const uint32_t w[16]) {
 }
 #endif
 
-FIELD_FN Fe mul(const Fe& a, const Fe& b) {
-  uint32_t w[16];
-#ifdef __CUDA_ARCH__
-  mul_wide_dev(a, b, w);
-  return fold_dev(w);
-#else
-  mul_wide(a, b, w);
+// w mod p on the host for w < 2^512: the same two folds by c on 64-bit
+// accumulators, then the carry fold and one conditional subtract.
+FIELD_FN Fe fold(const uint32_t w[16]) {
   // Fold 1: f = lo + hi * c < 2^298 (10 words).
   uint32_t f[10];
   uint64_t carry = 0;
@@ -310,6 +306,103 @@ FIELD_FN Fe mul(const Fe& a, const Fe& b) {
   }
   reduce_once(g.w, 0);
   return g;
+}
+
+// a * b mod p. The folds bound any product below 2^512, so a and b may
+// be any values below 2^256, canonical or not; the result is canonical.
+FIELD_FN Fe mul(const Fe& a, const Fe& b) {
+  uint32_t w[16];
+#ifdef __CUDA_ARCH__
+  mul_wide_dev(a, b, w);
+  return fold_dev(w);
+#else
+  mul_wide(a, b, w);
+  return fold(w);
+#endif
+}
+
+// 512-bit square w = a^2: the 28 cross products a_i a_j (i < j) once,
+// doubled, plus the 8 squares a_i^2 on the diagonal; 36 word products
+// where the schoolbook takes 64.
+FIELD_FN void sqr_wide(const Fe& a, uint32_t w[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) w[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; ++j) {
+      uint64_t t = (uint64_t)a.w[i] * a.w[j] + w[i + j] + carry;
+      w[i + j] = (uint32_t)t;
+      carry = t >> 32;
+    }
+    w[i + 8] = (uint32_t)carry;
+  }
+#pragma unroll
+  for (int i = 15; i > 0; --i) w[i] = (w[i] << 1) | (w[i - 1] >> 31);
+  w[0] <<= 1;
+  uint64_t carry = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t t = (uint64_t)a.w[i] * a.w[i] + w[2 * i] + carry;
+    w[2 * i] = (uint32_t)t;
+    t = (uint64_t)w[2 * i + 1] + (t >> 32);
+    w[2 * i + 1] = (uint32_t)t;
+    carry = t >> 32;
+  }
+}
+
+#ifdef __CUDA_ARCH__
+// The square on the card: the cross products as rows of IMAD.WIDE on
+// one carry chain each (as in mul_wide_dev), doubled by funnel shifts,
+// then the diagonal added on one chain.
+__device__ __forceinline__ void sqr_wide_dev(const Fe& a, uint32_t w[16]) {
+  // Row 0 writes w[1..8]; row i adds a_i * a_{i+1..7} at w[2i+1..i+8].
+  w[0] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; ++i) {
+    uint64_t t[8];
+#pragma unroll
+    for (int j = i + 1; j < 8; ++j)
+      t[j] = (uint64_t)a.w[j] * a.w[i] + (i ? w[i + j] : 0u);
+    w[2 * i + 1] = (uint32_t)t[i + 1];
+    if (i == 6) {
+      w[14] = (uint32_t)(t[7] >> 32);
+    } else {
+      w[2 * i + 2] =
+          ptx::add_cc((uint32_t)t[i + 2], (uint32_t)(t[i + 1] >> 32));
+#pragma unroll
+      for (int j = i + 3; j < 8; ++j)
+        w[i + j] = ptx::addc_cc((uint32_t)t[j], (uint32_t)(t[j - 1] >> 32));
+      w[i + 8] = ptx::addc((uint32_t)(t[7] >> 32), 0);
+    }
+  }
+  w[15] = __funnelshift_l(w[14], 0u, 1);
+#pragma unroll
+  for (int i = 14; i > 0; --i) w[i] = __funnelshift_l(w[i - 1], w[i], 1);
+  uint64_t d[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d[i] = (uint64_t)a.w[i] * a.w[i];
+  w[0] = (uint32_t)d[0];
+  w[1] = ptx::add_cc(w[1], (uint32_t)(d[0] >> 32));
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    w[2 * i] = ptx::addc_cc(w[2 * i], (uint32_t)d[i]);
+    w[2 * i + 1] = i < 7 ? ptx::addc_cc(w[2 * i + 1], (uint32_t)(d[i] >> 32))
+                         : ptx::addc(w[15], (uint32_t)(d[7] >> 32));
+  }
+}
+#endif
+
+// a^2 mod p, canonical, for any a below 2^256.
+FIELD_FN Fe sqr(const Fe& a) {
+  uint32_t w[16];
+#ifdef __CUDA_ARCH__
+  sqr_wide_dev(a, w);
+  return fold_dev(w);
+#else
+  sqr_wide(a, w);
+  return fold(w);
 #endif
 }
 
@@ -336,6 +429,6 @@ FIELD_FN Fe div4(const Fe& x) {
   return r;
 }
 
-FIELD_FN Fe cube(const Fe& a) { return mul(mul(a, a), a); }
+FIELD_FN Fe cube(const Fe& a) { return mul(sqr(a), a); }
 
 }  // namespace field

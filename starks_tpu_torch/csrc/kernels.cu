@@ -4,8 +4,8 @@
 // computes what that kernel computes; the TPU's block structure is not
 // carried over. Arrays are [n] elements of 8 little-endian 32-bit words
 // (32 bytes, 16-byte aligned). One thread per output element (or
-// butterfly) and a grid-stride loop, except the DIF passes, which run
-// several NTT stages of a tile in shared memory. Periodic tables are
+// butterfly) and a grid-stride loop, except the DIF and DIT passes,
+// which run several NTT stages of a tile in shared memory. Periodic tables are
 // read as tab[i % len]; a scalar is one element in device memory.
 //
 // Each kernel's bound (bytes or integer multiply-adds) is noted in
@@ -158,7 +158,8 @@ static void dif_pass_host(const Fe* x, const Fe* table, Fe* out,
 #endif
 
 // A3: DIT stage on interleaved pairs (replaces _dit_kernel):
-// u = a + w*b to the low half, v = a - w*b to the high half.
+// u = a + w*b to the low half, v = a - w*b to the high half. The first
+// design of the forward NTT, one launch per stage; off every path.
 KERNEL dit_kernel(const Fe* __restrict__ x, const Fe* __restrict__ table,
                   Fe* __restrict__ out, uint32_t half, uint32_t t) {
   FOR_EACH(j, half) {
@@ -168,6 +169,150 @@ KERNEL dit_kernel(const Fe* __restrict__ x, const Fe* __restrict__ table,
     out[j + half] = field::sub(a, wb);
   }
 }
+
+// A3, redesigned: several DIT stages in one pass, the transpose of the
+// DIF pass. A pass at stages s+k-1 down to s over n = 2^log_n elements
+// works on n / 2^k groups: group g reads the contiguous run
+// x[g * 2^k + m] (m < 2^k), runs the local stages i = k-1 down to 0 as
+// a = loc[2r], b = loc[2r+1] -> loc'[r] = a + w*b, loc'[r + 2^(k-1)] =
+// a - w*b, with the twiddle of the DIF butterfly it transposes
+// (dif_twiddle_index), and writes x[g + m * n/2^k]: the array after
+// stage s of the stage-by-stage network, so passes compose from the
+// highest stages down.
+//
+// With log_ext > 0 the pass is the first of a transform whose input is
+// zero except at multiples of ext = 2^log_ext, and x holds only those
+// (the compact [n / ext] coefficients of the LDE). Its first log_ext
+// local stages only copy (b is always zero), leaving group g's local
+// element l equal to x[g * 2^(k-log_ext) + l mod 2^(k-log_ext)], so the
+// pass loads that and starts at local stage k-1-log_ext.
+FIELD_FN uint32_t dit_load_index(uint32_t g, uint32_t l, uint32_t k,
+                                 uint32_t log_ext) {
+  const uint32_t kc = k - log_ext;
+  return (g << kc) | (l & ((1u << kc) - 1));
+}
+
+FIELD_FN void dit_butterfly(const Fe& a, const Fe& b, const Fe& w, Fe& u,
+                            Fe& v) {
+  const Fe wb = field::mul(w, b);
+  u = field::add(a, wb);
+  v = field::sub(a, wb);
+}
+
+#ifdef __CUDACC__
+// Blocks as in dif_pass_kernel: one per tile of 2^(k + log_c) elements
+// (C = 2^log_c groups when the pass is shorter than the transform's
+// width), BPT butterflies per thread and stage (two for a 2^10 tile, so
+// a block has at most 256 threads; the two are independent work for the
+// scheduler). The tile ping-pongs between two buffers in shared memory,
+// so each stage ends in one barrier and no result waits in registers
+// for it. The load is one contiguous run of the tile (for the compact
+// first pass, runs of 2^(k-log_ext) read ext times, from L2); the store
+// writes, for each m, C contiguous elements (a whole 32-byte sector each
+// when C = 1). Each twiddle is loaded a stage ahead. At most 80
+// registers a thread, so three blocks of 256 threads (and 64 KB of
+// shared memory each at k = 10) fit an SM.
+constexpr uint32_t kPassThreads = 256;
+
+// A tile of `size` elements in shared memory, as two planes of 16-byte
+// halves: the low half of element e at h[e], the high half at
+// h[size + e]. A butterfly's reads of elements 2r and 2r+1 then fall on
+// 2-way bank conflicts (4-way when the halves are interleaved), its
+// writes of r and r + 2^(k-1) on none.
+struct Tile {
+  uint4* h;
+  uint32_t size;
+  __device__ __forceinline__ Fe get(uint32_t e) const {
+    const uint4 a = h[e], b = h[size + e];
+    return {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+  }
+  __device__ __forceinline__ void set(uint32_t e, const Fe& v) const {
+    h[e] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+    h[size + e] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+  }
+};
+
+template <int BPT>
+__global__ void __launch_bounds__(kPassThreads, 3)
+    dit_pass_kernel(const Fe* __restrict__ x, const Fe* __restrict__ table,
+                    Fe* __restrict__ out, uint32_t log_n, uint32_t s,
+                    uint32_t k, uint32_t log_c, uint32_t log_ext) {
+  extern __shared__ uint4 buf[];  // two tiles, element c << k | m each
+  const uint32_t groups = 1u << (log_n - k);
+  const uint32_t size = 1u << (k + log_c);
+  const uint32_t g0 = blockIdx.x << log_c;
+  Tile cur{buf, size}, nxt{buf + 2 * size, size};
+  for (uint32_t e = threadIdx.x; e < size; e += blockDim.x)
+    cur.set(e, log_ext ? x[dit_load_index(g0 + (e >> k), e, k, log_ext)]
+                       : x[(g0 << k) + e]);
+  __syncthreads();
+  const uint32_t half = 1u << (k - 1);
+  const uint4* tw = reinterpret_cast<const uint4*>(table);
+  int i = (int)(k - 1 - log_ext);
+  uint32_t c[BPT], r[BPT];
+  uint4 w0[BPT], w1[BPT];
+#pragma unroll
+  for (int q = 0; q < BPT; ++q) {
+    const uint32_t b = threadIdx.x + q * blockDim.x;
+    c[q] = b >> (k - 1);
+    r[q] = b & (half - 1);
+    const uint32_t idx =
+        dif_twiddle_index(r[q], g0 + c[q], i < 0 ? 0 : i, log_n, k, s);
+    w0[q] = __ldg(tw + 2 * idx);
+    w1[q] = __ldg(tw + 2 * idx + 1);
+  }
+  for (; i >= 0; --i) {
+#pragma unroll
+    for (int q = 0; q < BPT; ++q) {
+      const Fe w = {{w0[q].x, w0[q].y, w0[q].z, w0[q].w, w1[q].x, w1[q].y,
+                     w1[q].z, w1[q].w}};
+      if (i > 0) {
+        const uint32_t idx =
+            dif_twiddle_index(r[q], g0 + c[q], i - 1, log_n, k, s);
+        w0[q] = __ldg(tw + 2 * idx);
+        w1[q] = __ldg(tw + 2 * idx + 1);
+      }
+      const uint32_t base = c[q] << k;
+      Fe u, v;
+      dit_butterfly(cur.get(base + 2 * r[q]), cur.get(base + 2 * r[q] + 1), w,
+                    u, v);
+      nxt.set(base + r[q], u);
+      nxt.set(base + r[q] + half, v);
+    }
+    __syncthreads();
+    const Tile t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  for (uint32_t e = threadIdx.x; e < size; e += blockDim.x) {
+    const uint32_t cc = e & ((1u << log_c) - 1), m = e >> log_c;
+    out[g0 + cc + m * groups] = cur.get((cc << k) | m);
+  }
+}
+#else
+// The same pass on the host: groups one after another, local stages
+// from the highest down.
+static void dit_pass_host(const Fe* x, const Fe* table, Fe* out,
+                          uint32_t log_n, uint32_t s, uint32_t k,
+                          uint32_t log_ext) {
+  const uint32_t groups = 1u << (log_n - k), size = 1u << k;
+  const uint32_t half = size / 2;
+  std::vector<Fe> loc(size), nxt(size);
+  for (uint32_t g = 0; g < groups; ++g) {
+    for (uint32_t m = 0; m < size; ++m)
+      loc[m] = log_ext ? x[dit_load_index(g, m, k, log_ext)]
+                       : x[g * size + m];
+    for (int i = (int)(k - 1 - log_ext); i >= 0; --i) {
+      for (uint32_t r = 0; r < half; ++r)
+        dit_butterfly(loc[2 * r], loc[2 * r + 1],
+                      table[dif_twiddle_index(r, g, i, log_n, k, s)],
+                      nxt[r], nxt[r + half]);
+      loc.swap(nxt);
+    }
+    for (uint32_t m = 0; m < size; ++m) out[g + m * groups] = loc[m];
+  }
+}
+#endif
 
 // A2: x * s for a scalar s (replaces _scale_kernel).
 KERNEL scale_kernel(const Fe* __restrict__ x, const Fe* __restrict__ s,
@@ -179,10 +324,15 @@ KERNEL scale_kernel(const Fe* __restrict__ x, const Fe* __restrict__ s,
 // A4: constraint, quotient and boundary map (replaces _db_kernel):
 //   C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
 //   B = (P - (ia + slope*x)) * Z2^-1.
-// P(g1 x) is P read `shift` elements ahead, cyclically.
+// P(g1 x) is P read `shift` elements ahead, cyclically; K and Znum^-1
+// are tables of power-of-two length, read as tab[i & mask]. Six modmuls
+// per element, one of them a square (P^2 for the cube); the kernel is
+// bound by the rate of their integer instructions, about as many on
+// the multiply-add pipe as on the add pipe (chip_smoke.py prints the
+// SASS count).
 KERNEL db_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
-                 const Fe* __restrict__ k_tab, uint32_t k_len,
-                 const Fe* __restrict__ zni_tab, uint32_t zni_len,
+                 const Fe* __restrict__ k_tab, uint32_t k_mask,
+                 const Fe* __restrict__ zni_tab, uint32_t zni_mask,
                  const Fe* __restrict__ iz2, const Fe* __restrict__ last,
                  const Fe* __restrict__ slope, const Fe* __restrict__ ia,
                  Fe* __restrict__ d_out, Fe* __restrict__ b_out, uint32_t n,
@@ -192,7 +342,31 @@ KERNEL db_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
     const uint32_t ir = i + shift < n ? i + shift : i + shift - n;
     const Fe pv = p[i], x = xs[i];
     const Fe c = field::sub(field::sub(p[ir], field::cube(pv)),
-                            k_tab[i % k_len]);
+                            k_tab[i & k_mask]);
+    d_out[i] = field::mul(field::mul(c, field::sub(x, last_v)),
+                          zni_tab[i & zni_mask]);
+    const Fe i_ev = field::add(ia_v, field::mul(slope_v, x));
+    b_out[i] = field::mul(field::sub(pv, i_ev), iz2[i]);
+  }
+}
+
+// A4 as first written: the cube as two general multiplies, the tables
+// read modulo their length. Off every path; chip_smoke.py times it
+// against db_kernel.
+KERNEL db_v1_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
+                    const Fe* __restrict__ k_tab, uint32_t k_len,
+                    const Fe* __restrict__ zni_tab, uint32_t zni_len,
+                    const Fe* __restrict__ iz2, const Fe* __restrict__ last,
+                    const Fe* __restrict__ slope, const Fe* __restrict__ ia,
+                    Fe* __restrict__ d_out, Fe* __restrict__ b_out,
+                    uint32_t n, uint32_t shift) {
+  const Fe last_v = *last, slope_v = *slope, ia_v = *ia;
+  FOR_EACH(i, n) {
+    const uint32_t ir = i + shift < n ? i + shift : i + shift - n;
+    const Fe pv = p[i], x = xs[i];
+    const Fe c = field::sub(
+        field::sub(p[ir], field::mul(field::mul(pv, pv), pv)),
+        k_tab[i % k_len]);
     d_out[i] = field::mul(field::mul(c, field::sub(x, last_v)),
                           zni_tab[i % zni_len]);
     const Fe i_ev = field::add(ia_v, field::mul(slope_v, x));
@@ -312,6 +486,60 @@ int starks_dit_stage(const void* x, const void* table, void* out, uint32_t n,
   LAUNCH(dit_kernel, n / 2, stream, F(x), F(table), W(out), n / 2, t);
 }
 
+// The DIT transform (bit-reversed in, natural out) as ceil(log_n / k)
+// passes of at most k stages (1 <= k <= 10, as for the DIF), from the
+// highest stages down. The pass with fewer stages, when k does not
+// divide log_n, comes first (it timed the same last). With log_ext > 0,
+// x holds the n / 2^log_ext nonzero inputs (every 2^log_ext-th) and the
+// first pass, which must run at least log_ext stages, reads them
+// (dit_pass_kernel). Passes ping-pong between out and scratch, so the
+// last one writes out; scratch is unused for one pass.
+int starks_ntt_dit(const void* x, const void* table, void* out,
+                   void* scratch, uint32_t n, uint32_t k,
+                   uint32_t log_ext, void* stream) {
+  uint32_t log_n = 0;
+  while ((1u << log_n) < n) ++log_n;
+  const uint32_t passes = (log_n + k - 1) / k;
+  const uint32_t short_k = log_n - (passes - 1) * k;
+  if (short_k < log_ext) return -1;
+  const Fe* src = F(x);
+  for (uint32_t p = 0, top = log_n; p < passes; ++p) {
+    const uint32_t kk = p ? k : short_k;
+    const uint32_t s = top - kk, le = p ? 0 : log_ext;
+    Fe* dst = (passes - 1 - p) % 2 ? W(scratch) : W(out);
+#ifdef __CUDACC__
+    // Two tiles of 2^k elements: 64 KB at k = 10, above the 48 KB a
+    // launch gets without opting in (once per process).
+    const int max_smem = (int)(2 * sizeof(Fe)) << 10;
+    static const int opt_in =
+        (int)cudaFuncSetAttribute(dit_pass_kernel<1>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  max_smem) |
+        (int)cudaFuncSetAttribute(dit_pass_kernel<2>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  max_smem);
+    if (opt_in) return opt_in;
+    const uint32_t blocks = n >> k, butterflies = 1u << (k - 1);
+    const size_t smem = (2 * sizeof(Fe)) << k;
+    if (butterflies > kPassThreads)
+      dit_pass_kernel<2><<<blocks, butterflies / 2, smem,
+                           (cudaStream_t)stream>>>(src, F(table), dst, log_n,
+                                                   s, kk, k - kk, le);
+    else
+      dit_pass_kernel<1><<<blocks, butterflies, smem, (cudaStream_t)stream>>>(
+          src, F(table), dst, log_n, s, kk, k - kk, le);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+#else
+    (void)stream;
+    dit_pass_host(src, F(table), dst, log_n, s, kk, le);
+#endif
+    src = dst;
+    top = s;
+  }
+  return 0;
+}
+
 int starks_scale(const void* x, const void* s, void* out, uint32_t n,
                  void* stream) {
   LAUNCH(scale_kernel, n, stream, F(x), F(s), W(out), n);
@@ -322,7 +550,18 @@ int starks_db_map(const void* p, const void* xs, const void* k_tab,
                   const void* iz2, const void* last, const void* slope,
                   const void* ia, void* d_out, void* b_out, uint32_t n,
                   uint32_t shift, void* stream) {
-  LAUNCH(db_kernel, n, stream, F(p), F(xs), F(k_tab), k_len, F(zni_tab),
+  if ((k_len & (k_len - 1)) || (zni_len & (zni_len - 1))) return -1;
+  LAUNCH(db_kernel, n, stream, F(p), F(xs), F(k_tab), k_len - 1,
+         F(zni_tab), zni_len - 1, F(iz2), F(last), F(slope), F(ia),
+         W(d_out), W(b_out), n, shift);
+}
+
+int starks_db_map_v1(const void* p, const void* xs, const void* k_tab,
+                     uint32_t k_len, const void* zni_tab, uint32_t zni_len,
+                     const void* iz2, const void* last, const void* slope,
+                     const void* ia, void* d_out, void* b_out, uint32_t n,
+                     uint32_t shift, void* stream) {
+  LAUNCH(db_v1_kernel, n, stream, F(p), F(xs), F(k_tab), k_len, F(zni_tab),
          zni_len, F(iz2), F(last), F(slope), F(ia), W(d_out), W(b_out), n,
          shift);
 }

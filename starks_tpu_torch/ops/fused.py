@@ -11,11 +11,12 @@ exists at any size.
 - `ntt_dif` is the constant-geometry (Pease) decimation-in-frequency
   network: natural order in, bit-reversed out, run as a few launches of
   the DIF pass kernel, each several stages in shared memory. `ntt_dit`
-  is its transpose (bit-reversed in, natural out), one launch of the
-  DIT kernel per stage.
-- `lde`: iNTT (DIF) -> scale by 1/n -> stride-8 zero interleave (for
-  c < n, rev_{log 8n}(c) = 8 * rev_{log n}(c), so zero-padding in the
-  coefficient domain is a strided write) -> forward NTT (DIT).
+  is its transpose (bit-reversed in, natural out), a few launches of the
+  DIT pass kernel.
+- `lde`: iNTT (DIF) -> scale by 1/n -> forward NTT (DIT) of the stride-8
+  zero interleave (for c < n, rev_{log 8n}(c) = 8 * rev_{log n}(c), so
+  zero-padding in the coefficient domain is a strided spread), which
+  the first DIT pass reads from the compact coefficients.
 - `fri_commit`: per round, fold by 4 at the Fiat-Shamir point (round r
   reads round 0's u-table at stride 4^r), then the column tree, the
   query indices and the column and row bundles.
@@ -79,25 +80,21 @@ def ntt_dif(x, table):
     return plimbs.dif_transform(x, table)
 
 
-def ntt_dit(x, table):
+def ntt_dit(x, table, ext: int = 1):
     """Transpose network: bit-reversed in, natural out (the DIF stages'
-    transposes in reverse twiddle order)."""
-    logn = x.shape[0].bit_length() - 1
-    for t in range(logn - 1, -1, -1):
-        x = plimbs.dit_stage(x, table, t)
-    return x
+    transposes in reverse twiddle order). With ext > 1, x holds only the
+    inputs at multiples of ext, the others being zero (`dit_transform`)."""
+    return plimbs.dit_transform(x, table, ext=ext)
 
 
 def lde(trace, inv_small, n_inv_small, fwd_big):
     """Low-degree extension of trace [steps, 8] onto the precision-point
-    domain of `fwd_big` (its plain power table)."""
+    domain of `fwd_big` (its plain power table). The coefficients are
+    the stride-ext nonzero inputs of the forward NTT, which reads them
+    compact (`ntt_dit`'s ext), so no zero-padded array is built."""
     steps = trace.shape[0]
-    precision = fwd_big.shape[0]
     coeffs = plimbs.scale(ntt_dif(trace, inv_small), n_inv_small)
-    padded = torch.zeros((steps, precision // steps, coeffs.shape[1]),
-                         dtype=coeffs.dtype, device=coeffs.device)
-    padded[:, 0] = coeffs
-    return ntt_dit(padded.reshape(precision, -1), fwd_big)
+    return ntt_dit(coeffs, fwd_big, ext=fwd_big.shape[0] // steps)
 
 
 def fri_round_schedule(precision: int, maxdeg_plus_1: int, cutoff: int):

@@ -7,16 +7,16 @@ tensors it launches its hand-written kernel (csrc/kernels.cu, built by
 ops/_build.py) on the current stream, or raises; given CPU tensors it
 runs its plain PyTorch version, which repeats the kernel's arithmetic
 and is what the CPU tests hold against the JAX package. `LAUNCHES`
-counts each wrapper's kernel launches (`dif_transform` makes one per
-pass).
+counts each wrapper's kernel launches (`dif_transform` and
+`dit_transform` make one per pass).
 
 Bounds on the card (32-byte elements, n elements per array): bytes over
 3.35 TB/s against 32-bit integer multiply-adds over the card's peak
 rate, 148 per modmul (chip_smoke.py). The NTT stages, scale, the L map
 and the elementwise ops (mul, add, sub, cube) are bound by their bytes;
-the D/B map, fold4 and the whole DIF transform (log n stages of
-butterflies over one pass of bytes) by their operations. PERF.md gives
-each kernel's time beside its bound.
+the D/B map, fold4 and the whole DIF and DIT transforms (log n stages of
+butterflies over a few passes of bytes) by their operations. PERF.md
+gives each kernel's time beside its bound.
 """
 
 import torch
@@ -28,10 +28,10 @@ NUM_WORDS = fl.NUM_WORDS
 L16 = fl.to_limbs16
 
 LAUNCHES = dict.fromkeys(
-    ["dif_stage", "dif_pass", "dit_stage", "scale", "db_map", "l_map",
-     "fold4", "mul", "add", "sub", "cube"], 0)
+    ["dif_stage", "dif_pass", "dit_stage", "dit_pass", "scale", "db_map",
+     "db_map_v1", "l_map", "fold4", "mul", "add", "sub", "cube"], 0)
 
-# Stages per DIF pass: at most DIF_PASS_MAX_STAGES (a tile of 2^k
+# Stages per DIF or DIT pass: at most DIF_PASS_MAX_STAGES (a tile of 2^k
 # elements in shared memory), spread evenly over the fewest passes.
 DIF_PASS_MAX_STAGES = 10
 
@@ -199,13 +199,70 @@ def dit_stage(x, table, t: int):
 
     Replaces `_dit_kernel` (starks_tpu/ops/plimbs.py:161, launched by
     `dit_stage_t`, :385). Pairs are read in place, so no de-interleave
-    or concatenate copy is built. Bound: bytes, 64n + 32*(n/2 >> t)."""
+    or concatenate copy is built. Bound: bytes, 64n + 32*(n/2 >> t). The
+    earlier design of the forward NTT: the proofs run `dit_transform`,
+    and chip_smoke.py times the two against each other."""
     n = x.shape[0]
     _check_stage(n, table, t)
     if not _on_card(x, table):
         return dit_stage_plain(x, table, t)
     out = torch.empty_like(x)
     _launch("dit_stage", x.device, x, table, out, n, t)
+    return out
+
+
+# -- A3, redesigned: the DIT transform in passes of several stages ------
+
+def dit_transform_plain(x, table, ext: int = 1):
+    """The stage chain, t = log n - 1 down to 0, over the n = ext * len(x)
+    inputs that are x at multiples of ext and zero elsewhere. Its first
+    log2(ext) stages only copy (b is zero), so it starts from x tiled
+    ext times."""
+    y = x.repeat(ext, 1) if ext > 1 else x
+    for t in range(y.shape[0].bit_length() - 2 - (ext.bit_length() - 1),
+                   -1, -1):
+        y = dit_stage_plain(y, table, t)
+    return y
+
+
+def dit_transform(x, table, k: int | None = None, ext: int = 1):
+    """The whole DIT network (bit-reversed in, natural out), the same as
+    `dit_stage` for t = log n - 1 down to 0, in ceil(log n / k) launches
+    of `dit_pass_kernel`, each up to k stages on tiles of 2^k elements in
+    shared memory (k defaults to `dif_pass_stages(n)`; the shorter pass
+    comes first). With ext > 1, x [n / ext, 8] holds
+    the nonzero inputs, at multiples of ext (the LDE's zero-interleaved
+    coefficients): the first pass reads them and skips the log2(ext)
+    stages that only copy, so no zero-padded array is built.
+
+    Replaces the chain of `_dit_kernel` launches (starks_tpu/ops/
+    plimbs.py:161, via `dit_stage_t`, :381) that `ntt_dit_pl`
+    (starks_tpu/ops/fused.py:286) makes, one per stage. Bound:
+    operations, log n - log2(ext) stages of n/2 butterflies (a modmul,
+    an add and a sub each); bytes 64n + 32 * n/2 per pass."""
+    n = x.shape[0] * ext
+    _check_size(n)
+    if ext & (ext - 1) or ext > n // 2:
+        raise ValueError(f"ext {ext} is not a power of two below n")
+    if table.shape[0] < n // 2:
+        raise ValueError("twiddle table shorter than n/2")
+    logn, log_ext = n.bit_length() - 1, ext.bit_length() - 1
+    k = dif_pass_stages(n) if k is None else k
+    if not 1 <= k <= DIF_PASS_MAX_STAGES:
+        raise ValueError(f"stages per pass {k} not in [1, "
+                         f"{DIF_PASS_MAX_STAGES}]")
+    k = min(k, logn)
+    passes = -(-logn // k)
+    first = logn - (passes - 1) * k
+    if first < log_ext:
+        raise ValueError(f"a first pass of {first} stages cannot read "
+                         f"inputs spread {ext} apart")
+    if not _on_card(x, table):
+        return dit_transform_plain(x, table, ext)
+    out = torch.empty((n, NUM_WORDS), dtype=torch.int32, device=x.device)
+    scratch = torch.empty_like(out) if passes > 1 else out
+    _launch("dit_pass", x.device, x, table, out, scratch, n, k, log_ext,
+            entry="starks_ntt_dit", launches=passes)
     return out
 
 
@@ -245,17 +302,8 @@ def db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
     return fl.from_limbs16(d), fl.from_limbs16(b)
 
 
-def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
-    """The fused D/B map over the evaluation domain:
-      C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
-      B = (P - (ia + slope*x)) * Z2^-1,
-    with P(g1 x) = p[(i + shift) % n], K and Znum^-1 periodic tables read
-    modulo their length, and last, slope, ia scalars [8]. Returns (D, B).
-
-    Replaces `_db_kernel` (starks_tpu/ops/plimbs.py:181, launched by
-    `db_map_t`, :418). The kernel reads P(g1 x) by offset, so the rolled
-    copy of P is never built. Bound: operations, 6 modmuls per element
-    (bytes 160n: P, x, 1/Z2 in; D, B out)."""
+def _db_args(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+    """Check db_map's arguments; True if they lie on the card."""
     n = p.shape[0]
     _check_size(n)
     for t in (xs, iz2):
@@ -267,13 +315,49 @@ def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
     if not 0 <= shift < n:
         raise ValueError("shift out of range")
     _check_tables(k_tab, zni_tab)
-    if not _on_card(p, xs, k_tab, zni_tab, iz2, last, slope, ia):
+    for t in (k_tab, zni_tab):
+        if t.shape[0] & (t.shape[0] - 1):
+            raise ValueError("K and Znum^-1 tables must have power-of-two "
+                             "length")
+    return _on_card(p, xs, k_tab, zni_tab, iz2, last, slope, ia)
+
+
+def _db_launch(name, p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift):
+    d, b = torch.empty_like(p), torch.empty_like(p)
+    _launch(name, p.device, p, xs, k_tab, k_tab.shape[0], zni_tab,
+            zni_tab.shape[0], iz2, last, slope, ia, d, b, p.shape[0], shift)
+    return d, b
+
+
+def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+    """The fused D/B map over the evaluation domain:
+      C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
+      B = (P - (ia + slope*x)) * Z2^-1,
+    with P(g1 x) = p[(i + shift) % n], K and Znum^-1 periodic tables of
+    power-of-two length (the MiMC setup's are ext * len(constants) and
+    ext) read modulo it, and last, slope, ia scalars [8]. Returns (D, B).
+
+    Replaces `_db_kernel` (starks_tpu/ops/plimbs.py:181, launched by
+    `db_map_t`, :418). The kernel reads P(g1 x) by offset, so the rolled
+    copy of P is never built, and the tables with a mask. Bound:
+    operations, 6 modmuls per element (bytes 160n: P, x, 1/Z2 in; D, B
+    out); P^2 is a dedicated square (`field::sqr`)."""
+    if not _db_args(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift):
         return db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia,
                             shift)
-    d, b = torch.empty_like(p), torch.empty_like(p)
-    _launch("db_map", p.device, p, xs, k_tab, k_tab.shape[0], zni_tab,
-            zni_tab.shape[0], iz2, last, slope, ia, d, b, n, shift)
-    return d, b
+    return _db_launch("db_map", p, xs, k_tab, zni_tab, iz2, last, slope,
+                      ia, shift)
+
+
+def db_map_v1(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+    """`db_map` as first written (one element per thread, the cube as
+    two general multiplies, the tables read modulo their length). Off
+    every path: chip_smoke.py times it against `db_map`."""
+    if not _db_args(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift):
+        return db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia,
+                            shift)
+    return _db_launch("db_map_v1", p, xs, k_tab, zni_tab, iz2, last, slope,
+                      ia, shift)
 
 
 # -- A5: linear combination ---------------------------------------------

@@ -7,6 +7,7 @@ bodies (csrc/kernels.cu) also compile as C++ with g++, so they are held
 against the plain versions here too; the launches themselves run only on
 a card (chip_smoke.py)."""
 
+import functools
 import random
 import shutil
 import subprocess
@@ -217,6 +218,50 @@ def test_dif_pass_stages():
             plimbs.dif_transform(x, x, k)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_dit_case(n):
+    """(input, power table, JAX ntt_dit output) at n points, seeded."""
+    g = pow(7, (M - 1) // n, M)
+    table = jfused._power_table_np(g, n)
+    jx, x = _rand(n, 140 + n.bit_length(), edge=True)
+    want = jax.jit(jfused.ntt_dit)(jx, jnp.asarray(
+        jfused._stacked_twiddles(table)))
+    return x, fl.from_jax_limbs(table), want
+
+
+@pytest.mark.parametrize("n", [2 ** L for L in range(6, 11)])
+def test_dit_transform_plain_matches_jax(n):
+    x, tab, want = _jax_dit_case(n)
+    assert _same(plimbs.dit_transform_plain(x, tab), want)
+    assert _same(plimbs.dit_transform(x, tab), want)
+
+
+@pytest.mark.parametrize("ext", [2, 8])
+def test_dit_transform_compact_matches_padded(ext):
+    """The compact form (x at multiples of ext, zero elsewhere) equals
+    the general transform of the zero-padded array."""
+    n = 512
+    _, c = _rand(n // ext, 150 + ext, edge=True)
+    _, tab = _rand(n, 151)
+    padded = torch.zeros((n // ext, ext, 8), dtype=torch.int32)
+    padded[:, 0] = c
+    want = plimbs.dit_transform_plain(padded.reshape(n, 8), tab)
+    assert plimbs.dit_transform(c, tab, ext=ext).equal(want)
+
+
+def test_dit_transform_rejects_bad_arguments():
+    x = _rand(64, 152)[1]
+    for k in (0, plimbs.DIF_PASS_MAX_STAGES + 1):
+        with pytest.raises(ValueError):
+            plimbs.dit_transform(x, x, k)
+    with pytest.raises(ValueError):
+        plimbs.dit_transform(x[:16], x, 5, ext=4)     # n = 64: passes 1, 5
+    with pytest.raises(ValueError):
+        plimbs.dit_transform(x[:16], x, ext=3)        # not a power of two
+    with pytest.raises(ValueError):
+        plimbs.dit_transform(x, x[:16], ext=2)        # table below n/2
+
+
 def test_ntt_dif_dit_match_fused():
     n = 512
     g = pow(7, (M - 1) // n, M)
@@ -305,10 +350,15 @@ def _host_cases():
                      [x, tab], [n, 3], (n, 8), (n, 8)),
         "dit_stage": (plimbs.dit_stage_plain(x, tab, 5),
                       [x, tab], [n, 5], (n, 8)),
+        "dit_pass": (plimbs.dit_transform_plain(x, tab),  # passes 2, 3, 3
+                     [x, tab], [n, 3, 0], (n, 8), (n, 8)),
         "scale": (plimbs.scale_plain(x, s1), [x, s1], [n], (n, 8)),
         "db_map": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
                    [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
                    (n, 8), (n, 8)),
+        "db_map_v1": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
+                      [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
+                      (n, 8), (n, 8)),
         "l_map": (plimbs.l_map_plain(d, p, b, cp, cb),
                   [d, p, b, cp, 8, cb, 8], [n], (n, 8)),
         "fold4": (plimbs.fold4_plain(x[:q], tab, s1, s2, 4),  # round 2
@@ -329,7 +379,7 @@ def _host_call(lib, entry, ins, ints, out_shapes):
     return outs
 
 
-ENTRY = {"dif_pass": "starks_ntt_dif"}
+ENTRY = {"dif_pass": "starks_ntt_dif", "dit_pass": "starks_ntt_dit"}
 
 
 @pytest.mark.parametrize("name", sorted(plimbs.LAUNCHES))
@@ -355,6 +405,107 @@ def test_host_ntt_dif_matches_stage_chain_and_jax(host_kernels, n, k):
     want = jax.jit(jfused.ntt_dif)(jx, jnp.asarray(
         jfused._stacked_twiddles(table)))
     assert _same(out, want)
+
+
+@pytest.mark.parametrize("wider", [0, 1])
+@pytest.mark.parametrize("n,k", DIF_PASSES)
+def test_host_ntt_dit_matches_stage_chain_and_jax(host_kernels, n, k,
+                                                  wider):
+    """The DIT pass kernel's group, twiddle and store arithmetic (shared
+    with the CUDA build) over several passes of k or k + 1 stages, the
+    short one first."""
+    x, tab, want = _jax_dit_case(n)
+    out, _ = _host_call(host_kernels, "starks_ntt_dit", [x, tab],
+                        [n, k + wider, 0], [(n, 8), (n, 8)])
+    assert out.equal(plimbs.dit_transform_plain(x, tab))
+    assert _same(out, want)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lde_case(steps):
+    """(port plan, trace, JAX lde_fused output) at `steps`, seeded."""
+    args = _plan_args(steps)
+    jplan = jfused.FusedPlan.get(*args, 2)
+    jtrace, trace = _rand(steps, 153, edge=True)
+    want = jax.jit(jfused.lde_fused)(jtrace, jplan.tw_inv_small,
+                                     jplan.n_inv_small, jplan.tw_fwd_big)
+    return fused.FusedPlan(*args, "cpu"), trace, want
+
+
+@pytest.mark.parametrize("k", [3, 5, 6, 9])
+def test_host_lde_compact_first_pass_matches_lde_fused(host_kernels, k):
+    """The g++ DIT passes reading the compact 1/n-scaled coefficients
+    (log_ext = 3, the copy stages skipped) give JAX `lde_fused` over 512
+    points: 3 + 3 + 3 and 3 + 6 stages (a first pass of copies only),
+    4 + 5, and one pass of 9."""
+    plan, trace, want = _jax_lde_case(64)
+    coeffs = plimbs.scale(fused.ntt_dif(trace, plan.inv_small),
+                          plan.n_inv_small)
+    n = plan.xs_big.shape[0]
+    out, _ = _host_call(host_kernels, "starks_ntt_dit",
+                        [coeffs, plan.xs_big], [n, k, 3],
+                        [(n, 8), (n, 8)])
+    assert _same(out, want)
+
+
+def test_host_cube_matches_ints_on_edge_values(host_kernels):
+    """field::cube = mul(sqr(a), a) as g++ builds it, on every operand of
+    the modmul's edge pairs (chip_smoke.mul_edge_pairs), against Python
+    ints."""
+    from chip_smoke import mul_edge_pairs
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    va, vb = mul_edge_pairs(constructed=256)
+    vals = sorted(set(va) | set(vb))
+    a = ints_to_tensor(vals)
+    (out,) = _host_call(host_kernels, "starks_cube", [a], [len(vals)],
+                        [(len(vals), 8)])
+    assert out.equal(plimbs.cube_plain(a))
+    assert [int.from_bytes(out[i].numpy().tobytes(), "little")
+            for i in range(len(vals))] == [v ** 3 % M for v in vals]
+
+
+def test_host_mul_takes_any_value_below_2_256(host_kernels):
+    """field::mul's folds bound any product below 2^512, so either
+    operand may lie in [p, 2^256): the g++ build against Python ints,
+    with such values on either side of structured and random ones."""
+    from chip_smoke import structured_ints
+    r = random.Random(160)
+    big = [M, M + 1, 2 ** 256 - 1, 2 ** 256 - 2] + [
+        r.randrange(M, 2 ** 256) for _ in range(28)]
+    vals = structured_ints()[:32] + [r.randrange(M) for _ in range(32)]
+    va = [x for x in big for _ in vals] + [y for _ in big for y in vals]
+    vb = [y for _ in big for y in vals] + [x for x in big for _ in vals]
+
+    def words(ints):
+        return torch.from_numpy(np.frombuffer(b"".join(
+            v.to_bytes(32, "little") for v in ints), dtype=np.int32)
+            .reshape(-1, 8).copy())
+
+    n = len(va)
+    (out,) = _host_call(host_kernels, "starks_mul",
+                        [words(va), n, words(vb), n], [n], [(n, 8)])
+    assert out.equal(words([a * b % M for a, b in zip(va, vb)]))
+
+
+@pytest.mark.parametrize("entry", ["starks_db_map", "starks_db_map_v1"])
+def test_host_db_map_matches_plain_on_structured_values(host_kernels,
+                                                        entry):
+    """The D/B map bodies as g++ builds them, with every array led by the
+    structured values (chip_smoke.structured_ints) in shifted orders."""
+    from chip_smoke import structured_ints
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    vals = structured_ints()
+    n = 512
+    rows = [ints_to_tensor((vals[j:] + vals[:j] + vals)[:n])
+            for j in (0, 7, 31, 101)]
+    p, xs, iz2 = rows[:3]
+    k, z = rows[3][:64], rows[1][:8]
+    s1, s2, s3 = (ints_to_tensor([v])[0] for v in (M - 1, 2 ** 255, 1))
+    want = plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8)
+    outs = _host_call(host_kernels, entry,
+                      [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
+                      [(n, 8), (n, 8)])
+    assert all(o.equal(w) for o, w in zip(outs, want))
 
 
 def test_host_mul_matches_plain_on_edge_pairs(host_kernels):
