@@ -10,23 +10,27 @@ Phases (any failure exits non-zero and prints no result):
      count (cuobjdump -sass, where the toolkit has it);
   2. each kernel against its plain PyTorch version, exact equality, on
      seeded random inputs with structured ones up front (all-ones words,
-     p - 1, p - 2, 2^255) at the shapes of a 2^16-step proof: the NTT
-     stages at their first, middle and last stage; the DIF transform at
-     2^13 and 2^16 points for the chosen stages per pass and one that
+     p - 1, p - 2, 2^255) at the shapes of a 2^16-step proof: the DIF
+     transform at 2^13 and 2^16 points, scaled (the LDE's 1/n in its
+     last stage) and not, for the chosen stages per pass and one that
      leaves a short last pass; the DIT transform at 2^19 points on the
      LDE's compact coefficients and on a general input, and at 2^16
-     with a short first pass; the D/B map in both designs;
-     fold4 at every FRI round's shape and shift; the elementwise ops
-     with full, 8-periodic and constant operands on either side; mul on
-     2^20 products led by edge pairs that reach every carry path of the
-     modmul. Each kernel's device time per launch (CUDA events around a
-     run of launches queued behind a spin on the card), its per-call
-     cost (host clock around a run of calls) and its plain version's
-     per-call cost, beside its bound; then the DIF and DIT transforms
-     for each stages-per-pass width 4-10 (the DIT at 2^16 and 2^19,
-     general and compact input), the stage-by-stage
-     DIF and DIT against the transforms, and the first D/B map design
-     against the second, each in turns (old, new, new, old);
+     with a short first pass; the D/B map; fold4 at every FRI round's
+     shape and shift; the elementwise ops with full, 8-periodic and
+     constant operands on either side; mul on 2^20 products led by edge
+     pairs that reach every carry path of the modmul; scale (with and
+     without an accumulator) and cube at 2^19, 2^16, 2^16 + 7, 257, 3
+     and 1 elements. Each kernel's device time per launch (CUDA events
+     around a run of launches queued behind a spin on the card), its
+     per-call cost (host clock around a run of calls) and its plain
+     version's per-call cost, beside its bound; then the DIF (scaled and
+     not) and DIT transforms for each stages-per-pass width 4-10 (the
+     DIT at 2^16 and 2^19, general and compact input); in turns (old,
+     new, new, old): the DIF transform then scale against the scaled
+     transform, scale then add against scale with an accumulator, mul by
+     a constant (the frame scale had) against scale; cube beside a
+     torch copy of the same bytes, and the streaming kernels also under
+     a flush that leaves no dirty lines in L2 and with warm inputs;
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
@@ -45,9 +49,9 @@ Phases (any failure exits non-zero and prints no result):
   7. every kernel's launches on each main path: the steady MiMC 2^16,
      fib-square 2^13 and 2^16 proofs and the MiMC-as-AIR proof, each
      counted alone (counts set to 0 just before it, read just after);
-     each kernel > 0 on every path that runs it, no launch of an earlier
-     design (stage-by-stage DIF or DIT, the first D/B map) on any path,
-     and at most two DIF and two DIT pass launches per column;
+     each kernel > 0 on every path that runs it, no scale launch on the
+     MiMC path (its 1/n is in the DIF transform), and at most two DIF
+     and two DIT pass launches per column;
      one JSON line of kernel rows, each with the count of its own main
      path and the counts of every path, and the result line.
 
@@ -95,15 +99,13 @@ OPS_MUL = 2 * (64 + 8 + 2)
 OPS_SQR = 2 * (36 + 8 + 2)
 OPS_ADD = 8
 
+FLUSH_WORDS = 64 * 2 ** 20   # 256 MB, five times the L2
 SRC = "starks_tpu_torch/csrc/kernels.cu"
 REPLACES = {
-    "dif_stage": "starks_tpu/ops/plimbs.py:154",
     "dif_pass": "starks_tpu/ops/plimbs.py:154",
-    "dit_stage": "starks_tpu/ops/plimbs.py:161",
     "dit_pass": "starks_tpu/ops/plimbs.py:161",
     "scale": "starks_tpu/ops/plimbs.py:175",
     "db_map": "starks_tpu/ops/plimbs.py:181",
-    "db_map_v1": "starks_tpu/ops/plimbs.py:181",
     "l_map": "starks_tpu/ops/plimbs.py:203",
     "fold4": "starks_tpu/ops/plimbs.py:212",
     "mul": "starks_tpu/ops/plimbs.py:149",
@@ -113,17 +115,18 @@ REPLACES = {
 }
 # The main paths, each counted alone, and the kernels each must launch.
 # A kernel's row reports the count of the first path here that runs it:
-# the 2^16-step paths first, whose shapes phase 2 times.
-NTT_FRI = ["dif_pass", "dit_pass", "scale", "fold4"]
+# the 2^16-step paths first, whose shapes phase 2 times. The LDE's 1/n
+# runs inside dif_pass; scale runs only on the AIR paths.
+NTT_FRI = ["dif_pass", "dit_pass", "fold4"]
 FIB = f"fib-square {SMALL_STEPS}"
 FIB_BIG = f"fib-square {BIG_STEPS}"
 MIMC = f"MiMC {BIG_STEPS}"
 MIMC_AIR = f"MiMC-as-AIR {SMALL_STEPS}"
 PATH_KERNELS = {
     MIMC: NTT_FRI + ["db_map", "l_map"],
-    FIB_BIG: NTT_FRI + ["mul", "add", "sub"],
-    FIB: NTT_FRI + ["mul", "add", "sub"],
-    MIMC_AIR: NTT_FRI + ["mul", "add", "sub", "cube"],
+    FIB_BIG: NTT_FRI + ["scale", "mul", "add", "sub"],
+    FIB: NTT_FRI + ["scale", "mul", "add", "sub"],
+    MIMC_AIR: NTT_FRI + ["scale", "mul", "add", "sub", "cube"],
 }
 
 
@@ -163,6 +166,29 @@ def structured_ints():
 def edge_elems(device):
     from starks_tpu_torch.utils.conversions import ints_to_tensor
     return ints_to_tensor(structured_ints(), device)
+
+
+def with_edges(a, front):
+    """a with its first rows replaced by `front`."""
+    m = min(a.shape[0], front.shape[0])
+    a[:m] = front[:m]
+    return a
+
+
+def power_like(tw):
+    """tw with tw[0] = 1, as in every power table: the DIF transform's
+    last stage relies on it (no twiddle product)."""
+    tw[0] = 0
+    tw[0, 0] = 1
+    return tw
+
+
+def dif_ops(n, scaled=True):
+    """Least operations of an n-point DIF transform: log n stages of n/2
+    butterflies of a modmul and two adds, the last stage's twiddle (1)
+    not multiplied; with a scale, n more modmuls in that stage."""
+    return ((n.bit_length() - 1) * n // 2 * (OPS_MUL + 2 * OPS_ADD)
+            + (n // 2 if scaled else -n // 2) * OPS_MUL)
 
 
 def mul_edge_pairs(seed=SEED, constructed=1024):
@@ -225,18 +251,15 @@ def kernel_cases(steps, device):
     edge = edge_elems(device)
 
     def arr(n, front=edge):
-        a = rand_elems(n, gen, device)
-        m = min(n, front.shape[0])
-        a[:m] = front[:m]
-        return a
+        return with_edges(rand_elems(n, gen, device), front)
 
     def one():
         return rand_elems(1, gen, device)[0]
 
     const = rand_elems(1, gen, device)          # [1, 8], read periodically
 
-    x_small, tw_small = arr(steps), arr(steps)
-    x_13, tw_13 = arr(SMALL_STEPS), arr(SMALL_STEPS)
+    x_small, tw_small = arr(steps), power_like(arr(steps))
+    x_13, tw_13 = arr(SMALL_STEPS), power_like(arr(SMALL_STEPS))
     x_big, tw_big = arr(n_big), arr(n_big)
     coeffs = arr(steps)                         # the LDE's compact input
     p, xs, iz2 = arr(n_big), arr(n_big), arr(n_big)
@@ -253,9 +276,9 @@ def kernel_cases(steps, device):
     def stage_bytes(n):          # x in, out, stage-0 twiddles n/2
         return ELEM * (2 * n + n // 2)
 
-    def stages(x, tw):
-        logn = x.shape[0].bit_length() - 1
-        return [(x, tw, t) for t in (0, logn // 2, logn - 1)]
+    def ragged(*arrays):         # the streaming frame's ragged sizes
+        return [tuple(a[:m] for a in arrays) for m in
+                (steps + 7, 257, 3, 1)]
 
     def short_k(n):              # stages per pass that leave a short pass
         logn = n.bit_length() - 1
@@ -271,17 +294,18 @@ def kernel_cases(steps, device):
 
     return [
         ("dif_pass", plimbs.dif_transform,
-         lambda x, tw, k=None: plimbs.dif_transform_plain(x, tw),
-         [(x_small, tw_small), (x_small, tw_small, short_k(steps)),
-          (x_13, tw_13), (x_13, tw_13, short_k(SMALL_STEPS))],
-         stage_bytes(steps),
-         (steps.bit_length() - 1) * steps // 2 * (OPS_MUL + 2 * OPS_ADD),
-         True),
-        ("dif_stage", plimbs.dif_stage, plimbs.dif_stage_plain,
-         stages(x_small, tw_small), stage_bytes(steps),
-         steps // 2 * (OPS_MUL + 2 * OPS_ADD), True),
-        ("scale", plimbs.scale, plimbs.scale_plain, [(x_small, s)],
-         ELEM * (2 * steps + 1), steps * OPS_MUL, True),
+         lambda x, tw, k=None, sc=None: plimbs.dif_transform_plain(x, tw,
+                                                                   sc),
+         [(x_small, tw_small, None, s), (x_small, tw_small),
+          (x_small, tw_small, short_k(steps), s),
+          (x_13, tw_13, None, s), (x_13, tw_13, short_k(SMALL_STEPS), s),
+          (x_13, tw_13)],
+         stage_bytes(steps), dif_ops(steps), True),
+        ("scale", plimbs.scale, plimbs.scale_plain,
+         [(x_big, s), (x_big, s, p), (x_small, s), (x_small, s, d[:steps])]
+         + [(x, s) for (x,) in ragged(x_big)]
+         + [(x, s, a) for x, a in ragged(x_big, p)],
+         ELEM * (2 * n_big + 1), n_big * OPS_MUL, False),
         ("dit_pass", plimbs.dit_transform,
          lambda x, tw, k=None, ext=1: plimbs.dit_transform_plain(x, tw,
                                                                   ext),
@@ -289,17 +313,10 @@ def kernel_cases(steps, device):
           (x_small, tw_small), (x_small, tw_small, short_k(steps))],
          ELEM * (steps + n_big + n_big // 2),   # the LDE's: compact in
          dit_ops(n_big, EXT), True),
-        ("dit_stage", plimbs.dit_stage, plimbs.dit_stage_plain,
-         stages(x_big, tw_big), stage_bytes(n_big),
-         n_big // 2 * (OPS_MUL + 2 * OPS_ADD), True),
         ("db_map", plimbs.db_map, plimbs.db_map_plain,
          [(p, xs, k_tab, zni, iz2, last, slope, ia, EXT)],
          ELEM * (5 * n_big + k_tab.shape[0] + EXT + 3),
          n_big * (5 * OPS_MUL + OPS_SQR + 5 * OPS_ADD), False),
-        ("db_map_v1", plimbs.db_map_v1, plimbs.db_map_plain,
-         [(p, xs, k_tab, zni, iz2, last, slope, ia, EXT)],
-         ELEM * (5 * n_big + k_tab.shape[0] + EXT + 3),
-         n_big * (6 * OPS_MUL + 5 * OPS_ADD), False),
         ("l_map", plimbs.l_map, plimbs.l_map_plain, [(d, p, b, cp, cb)],
          ELEM * (4 * n_big + 2 * EXT), n_big * (2 * OPS_MUL + 2 * OPS_ADD),
          False),
@@ -315,7 +332,8 @@ def kernel_cases(steps, device):
         ("sub", plimbs.sub, plimbs.sub_plain,
          [(x_big, p), (zni, xs), (b, const)], ELEM * 3 * n_big,
          n_big * OPS_ADD, False),
-        ("cube", plimbs.cube, plimbs.cube_plain, [(x_big,)],
+        ("cube", plimbs.cube, plimbs.cube_plain,
+         [(x_big,), (x_small,)] + ragged(x_big),
          ELEM * 2 * n_big, n_big * (OPS_MUL + OPS_SQR), False),
     ]
 
@@ -344,7 +362,7 @@ def device_ms(fn, device, spin_ms, flush=None, reps=REPS):
     the spin was still running when the last call returned is checked
     (else the spin is lengthened and the run repeated). Without `flush`,
     events around `reps` back-to-back calls, over `reps` (the inputs
-    stay in L2). With `flush` (a large tensor), the L2 is overwritten
+    stay in L2). With `flush` (a call that overwrites the L2), it runs
     before each call and events around each call are summed."""
     import torch
     fn()
@@ -363,7 +381,7 @@ def device_ms(fn, device, spin_ms, flush=None, reps=REPS):
         else:
             windows = []
             for _ in range(reps):
-                flush.zero_()
+                flush()
                 w = (torch.cuda.Event(enable_timing=True),
                      torch.cuda.Event(enable_timing=True))
                 w[0].record()
@@ -408,7 +426,7 @@ def phase_kernels(steps, device, plain_reps=3):
     ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
     print(f"  {sms} SMs at {mhz:.0f} MHz max: {ops_per_s:.4e} int32 "
           f"multiply-adds/s", flush=True)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=device).zero_
     rows = {}
     for name, wrapper, plain, cases, nbytes, ops, warm in kernel_cases(
             steps, device):
@@ -440,54 +458,54 @@ def phase_kernels(steps, device, plain_reps=3):
 
 
 def phase_dif_designs(device):
-    """Phase 2, continued: the DIF transform for each stages-per-pass
-    width at 2^13 and 2^16 points (each equal to the plain stage chain),
-    then the stage-by-stage network (one dif_stage launch per stage)
-    against the transform, in turns (old, new, new, old)."""
+    """Phase 2, continued: the DIF transform, scaled and not, for each
+    stages-per-pass width 4-10 at 2^13 and 2^16 points (each equal to
+    the plain stage chain, times the scale), then the transform followed
+    by a scale launch against the scaled transform, in turns (old, new,
+    new, old)."""
     import torch
     from starks_tpu_torch.ops import plimbs
     gen = torch.Generator().manual_seed(SEED + 1)
+    edge = edge_elems(device)
+    s = rand_elems(1, gen, device)[0]
     for n in (SMALL_STEPS, BIG_STEPS):
         logn = n.bit_length() - 1
-        x, tw = rand_elems(n, gen, device), rand_elems(n, gen, device)
+        x = with_edges(rand_elems(n, gen, device), edge)
+        tw = power_like(rand_elems(n, gen, device))
         want = plimbs.dif_transform_plain(x, tw)
+        want_s = plimbs.dif_transform_plain(x, tw, s)
         chosen = plimbs.dif_pass_stages(n)
         for k in range(4, plimbs.DIF_PASS_MAX_STAGES + 1):
             check(torch.equal(plimbs.dif_transform(x, tw, k), want),
                   f"DIF transform, n = {n}, k = {k}, differs from plain")
+            check(torch.equal(plimbs.dif_transform(x, tw, k, s), want_s),
+                  f"scaled DIF transform, n = {n}, k = {k}, differs from "
+                  f"plain")
             dev, per_call = kernel_times(
-                lambda: plimbs.dif_transform(x, tw, k), device)
+                lambda: plimbs.dif_transform(x, tw, k, s), device)
             mark = " (chosen)" if k == chosen else ""
             print(f"  DIF n = 2^{logn}, {k:2d} stages per pass "
-                  f"({-(-logn // k)} launches){mark}: device {dev:.6f} ms, "
-                  f"per-call {per_call:.6f} ms", flush=True)
-
-        def old():
-            y = x
-            for t in range(logn):
-                y = plimbs.dif_stage(y, tw, t)
-            return y
-
-        check(torch.equal(old(), want), "stage-by-stage DIF differs")
+                  f"({-(-logn // k)} launches){mark}, scaled: device "
+                  f"{dev:.6f} ms, per-call {per_call:.6f} ms", flush=True)
         turns = []
-        for label, fn in (("old", old),
-                          ("new", lambda: plimbs.dif_transform(x, tw)),
-                          ("new", lambda: plimbs.dif_transform(x, tw)),
-                          ("old", old)):
+        for label, fn in (
+                ("old", lambda: plimbs.scale(plimbs.dif_transform(x, tw), s)),
+                ("new", lambda: plimbs.dif_transform(x, tw, scale=s)),
+                ("new", lambda: plimbs.dif_transform(x, tw, scale=s)),
+                ("old", lambda: plimbs.scale(plimbs.dif_transform(x, tw), s))):
             dev, per_call = kernel_times(fn, device)
             turns.append(f"{label} {dev:.6f} / {per_call:.6f}")
-        print(f"  DIF n = 2^{logn}, stage by stage ({logn} launches) "
-              f"against the transform, device / per-call ms per "
-              f"transform: " + "; ".join(turns), flush=True)
+        print(f"  DIF n = 2^{logn}, transform then scale against the scaled "
+              f"transform, device / per-call ms: " + "; ".join(turns),
+              flush=True)
 
 
 def phase_dit_designs(device):
     """Phase 2, continued: the DIT transform at 2^16 and 2^19 points for
     each stages-per-pass width 4-10 (a short first pass where the width
-    does not divide log n), on a general input and on compact coefficients (x at multiples of 8,
-    as the LDE gives it), each equal to the plain stage chain; then the
-    stage-by-stage network (one dit_stage launch per stage) against the
-    transform, in turns (old, new, new, old)."""
+    does not divide log n), on a general input and on compact
+    coefficients (x at multiples of 8, as the LDE gives it), each equal
+    to the plain stage chain."""
     import torch
     from starks_tpu_torch.ops import plimbs
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -525,47 +543,54 @@ def phase_dit_designs(device):
                          f"{per_call:.6f} ms")
             print(line, flush=True)
 
-        def old():
-            y = x
-            for t in range(logn - 1, -1, -1):
-                y = plimbs.dit_stage(y, tw, t)
-            return y
 
-        check(torch.equal(old(), want), "stage-by-stage DIT differs")
-        turns = []
-        for label, fn in (("old", old),
-                          ("new", lambda: plimbs.dit_transform(x, tw)),
-                          ("new", lambda: plimbs.dit_transform(x, tw)),
-                          ("old", old)):
-            dev, per_call = kernel_times(fn, device)
-            turns.append(f"{label} {dev:.6f} / {per_call:.6f}")
-        print(f"  DIT n = 2^{logn}, stage by stage ({logn} launches) "
-              f"against the transform, device / per-call ms per "
-              f"transform: " + "; ".join(turns), flush=True)
-
-
-def phase_db_designs(device):
-    """Phase 2, continued: the D/B map as first written (db_map_v1)
-    against db_map at a 2^16-step proof's shape, L2 flushed before each
-    launch, in turns (old, new, new, old)."""
+def phase_stream_turns(device):
+    """Phase 2, continued: the streaming kernels against what they
+    replace, L2 flushed before each launch, in turns (old, new, new,
+    old): scale then add against scale with an accumulator (2^19); mul
+    by a constant [1, 8] operand, the 256-thread frame that scale had,
+    against scale (2^16, 2^19). Then cube beside a torch copy of the
+    same bytes (the card's streaming yardstick, never called by the
+    port), each of these also under a flush that reads the L2 full
+    (clean lines, where `zero_` leaves dirty lines that the next
+    kernel's misses must write back) and with the inputs warm in L2 (no
+    flush: what the arithmetic alone takes)."""
     import torch
     from starks_tpu_torch.ops import plimbs
     gen = torch.Generator().manual_seed(SEED + 3)
-    n = BIG_STEPS * EXT
-    p, xs, iz2 = (rand_elems(n, gen, device) for _ in range(3))
-    k_tab, zni = rand_elems(EXT * len(CONSTS), gen, device), rand_elems(
-        EXT, gen, device)
-    last, slope, ia = rand_elems(3, gen, device)
-    args = (p, xs, k_tab, zni, iz2, last, slope, ia, EXT)
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=device)
-    turns = []
-    for label, fn in (("old", plimbs.db_map_v1), ("new", plimbs.db_map),
-                      ("new", plimbs.db_map), ("old", plimbs.db_map_v1)):
-        dev, per_call = kernel_times(lambda: fn(*args), device, flush)
-        turns.append(f"{label} {dev:.6f} / {per_call:.6f}")
-    print(f"  D/B map n = 2^{n.bit_length() - 1}, first design against "
-          f"db_map, device (L2 flushed) / per-call ms: " + "; ".join(turns),
-          flush=True)
+    big = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=device)
+    dirty, clean = big.zero_, big.max
+    s = rand_elems(1, gen, device)[0]
+
+    def turns(what, old, new, flush=dirty):
+        out = []
+        for label, fn in (("old", old), ("new", new), ("new", new),
+                          ("old", old)):
+            dev, per_call = kernel_times(fn, device, flush)
+            out.append(f"{label} {dev:.6f} / {per_call:.6f}")
+        print(f"  {what}, device (L2 flushed) / per-call ms: "
+              + "; ".join(out), flush=True)
+
+    for n in (BIG_STEPS, BIG_STEPS * EXT):
+        logn = n.bit_length() - 1
+        x, acc = rand_elems(n, gen, device), rand_elems(n, gen, device)
+        copy = torch.empty_like(x)
+        if n == BIG_STEPS * EXT:
+            turns(f"n = 2^{logn}, scale then add against scale(acc=)",
+                  lambda: plimbs.add(acc, plimbs.scale(x, s)),
+                  lambda: plimbs.scale(x, s, acc))
+        turns(f"n = 2^{logn}, mul(x, s[None]) against scale",
+              lambda: plimbs.mul(x, s[None]), lambda: plimbs.scale(x, s))
+        for name, fn in (("copy", lambda: copy.copy_(x)),
+                         ("cube", lambda: plimbs.cube(x)),
+                         ("scale", lambda: plimbs.scale(x, s)),
+                         ("scale(acc=)", lambda: plimbs.scale(x, s, acc)),
+                         ("add", lambda: plimbs.add(acc, x))):
+            times = [kernel_times(fn, device, f)[0]
+                     for f in (dirty, clean, None)]
+            print(f"  n = 2^{logn}, {name:<11s} device ms, L2 flushed "
+                  f"dirty {times[0]:.6f}, clean {times[1]:.6f}, warm "
+                  f"{times[2]:.6f}", flush=True)
 
 
 def phase_build(build) -> str:
@@ -788,20 +813,31 @@ def phase_profiles(device, mimc_steady_s, air_steady_s):
 
 
 # The field kernels, as the profiler and cuobjdump name them (mangled
-# or not).
+# or not), with a template argument: the DIT pass's butterflies per
+# thread, the streaming frame's op.
 FIELD_KERNEL = re.compile(
-    r"^(?:void )?(?:_Z\d+)?(dif_pass|dif|dit_pass|dit|scale|db_v1|db|l|fold4"
-    r"|mul|add|sub|cube)_kernel(?:ILi(\d+)EEv|<(\d+)>)?(?:\(|P|$)")
+    r"^(?:void )?(?:_Z\d+)?(dif_pass|dit_pass|stream_map|db|l|fold4|mul|add"
+    r"|sub)_kernel(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<(\w+)>)?(?:\(|P|$)")
+# The wrapper each op of the streaming frame serves.
+STREAM_OPS = {"ScaleOp": "scale", "ScaleAccOp": "scale", "CubeOp": "cube"}
 
 
 def kernel_label(name) -> str:
     """A field kernel's short name, with its template argument if any
-    (dit_pass<2>); other names as they are."""
+    (dit_pass<2>, stream_map<CubeOp>); other names as they are."""
     m = FIELD_KERNEL.match(name)
     if not m:
         return name
-    arg = m.group(2) or m.group(3)
+    arg = m.group(2) or m.group(3) or m.group(4)
     return f"{m.group(1)}<{arg}>" if arg else m.group(1)
+
+
+def kernel_key(m) -> str:
+    """The wrapper a FIELD_KERNEL match belongs to (the streaming
+    frame's op's, for stream_map)."""
+    if m.group(1) == "stream_map":
+        return STREAM_OPS.get(m.group(3) or m.group(4), "stream_map")
+    return m.group(1)
 
 
 def profile_proof(run, device, steady_s):
@@ -826,7 +862,8 @@ def profile_proof(run, device, steady_s):
         device_us += us
         m = FIELD_KERNEL.match(evt.name)
         if m:
-            field_us[m.group(1)] = field_us.get(m.group(1), 0.0) + us
+            key = kernel_key(m)
+            field_us[key] = field_us.get(key, 0.0) + us
     check(launches > 0, "the profiler saw no kernel on the card")
     print(f"  profiled proof: {launches} CUDA kernel launches, "
           f"{device_us / 1e6:.5f} s of kernel time, device busy "
@@ -841,25 +878,29 @@ def phase_launches(rows, launches):
     """Phase 7: each path launched every kernel it runs, the NTTs only
     through the multi-stage passes (at most two per column: <= 3 DIF or
     DIT pass launches per MiMC 2^16 proof, one column, and <= 4 per
-    fib-square 2^13 proof, two columns); each kernel row gets the count
-    of its own main path (0 for the earlier designs, which no path
-    runs) and those of every path."""
+    fib-square 2^13 proof, two columns), and the MiMC path no scale (the
+    LDE's 1/n is in the DIF transform); prints the scale and add counts
+    of every path (the AIR sums take each scaled term with scale's
+    accumulator, so no add follows a scale); each kernel row gets the
+    count of its own main path and those of every path."""
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,
                   f"kernel {name} never ran on the {path} path")
-        for name in ("dif_stage", "dit_stage", "db_map_v1"):
-            check(launches[path][name] == 0,
-                  f"the earlier design {name} ran on the {path} path")
+    check(launches[MIMC]["scale"] == 0,
+          f"{launches[MIMC]['scale']} scale launches on the {MIMC} path")
     for name in ("dif_pass", "dit_pass"):
         check(launches[MIMC][name] <= 3,
               f"{launches[MIMC][name]} {name} launches on the {MIMC} path")
         check(launches[FIB][name] <= 4,
               f"{launches[FIB][name]} {name} launches on the {FIB} path")
+    for name in ("scale", "add"):
+        print(f"  {name} launches per path: " + " / ".join(
+            str(launches[p][name]) for p in PATH_KERNELS) + " ("
+            + " / ".join(PATH_KERNELS) + ")", flush=True)
     for name, row in rows.items():
-        row["path"] = next((p for p, ks in PATH_KERNELS.items()
-                            if name in ks), None)
-        row["launches"] = launches[row["path"]][name] if row["path"] else 0
+        row["path"] = next(p for p, ks in PATH_KERNELS.items() if name in ks)
+        row["launches"] = launches[row["path"]][name]
         row["launches_by_path"] = {p: launches[p][name] for p in PATH_KERNELS}
         print(f"  {name:<10s} " + ", ".join(
             f"{p} {n}" for p, n in row["launches_by_path"].items()),
@@ -887,7 +928,7 @@ def main() -> int:
     rows = phase_kernels(BIG_STEPS, device)
     phase_dif_designs(device)
     phase_dit_designs(device)
-    phase_db_designs(device)
+    phase_stream_turns(device)
 
     print("phase 3: main path, small proof", flush=True)
     phase_small_proof(SMALL_STEPS, device)

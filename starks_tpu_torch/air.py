@@ -249,8 +249,7 @@ def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
     for reg, basis_r, inv_z in zip(su.b_regs, su.basis, su.inv_z):
         i_ev = None
         for basis in basis_r:
-            term = plimbs.scale(basis, next(y_iter))
-            i_ev = term if i_ev is None else plimbs.add(i_ev, term)
+            i_ev = plimbs.scale(basis, next(y_iter), acc=i_ev)
         b_cols.append(plimbs.mul(plimbs.sub(p_cols[reg], i_ev), inv_z))
     timer.mark("constraints/quotient/boundary")
 
@@ -265,8 +264,7 @@ def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
                for j in range(su.n_weights)])
     l_vals = None
     for d in d_cols:
-        term = plimbs.scale(d, next(ks))
-        l_vals = term if l_vals is None else plimbs.add(l_vals, term)
+        l_vals = plimbs.scale(d, next(ks), acc=l_vals)
     for col in p_cols + b_cols:
         coef = td.lincomb_coeffs(next(ks), next(ks), su.h_pows)
         term = plimbs.mul(col, coef)

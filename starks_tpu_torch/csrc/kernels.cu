@@ -5,8 +5,9 @@
 // carried over. Arrays are [n] elements of 8 little-endian 32-bit words
 // (32 bytes, 16-byte aligned). One thread per output element (or
 // butterfly) and a grid-stride loop, except the DIF and DIT passes,
-// which run several NTT stages of a tile in shared memory. Periodic tables are
-// read as tab[i % len]; a scalar is one element in device memory.
+// which run several NTT stages of a tile in shared memory. Scale and
+// cube share one template (stream_map). Periodic tables are read as
+// tab[i % len]; a scalar is one element in device memory.
 //
 // Each kernel's bound (bytes or integer multiply-adds) is noted in
 // ops/plimbs.py; the simple form here is a first, correct version.
@@ -53,18 +54,6 @@ inline uint32_t grid_for(uint32_t count) {
   } while (0)
 #endif
 
-// A1: Pease DIF stage (replaces _dif_kernel via dif_stage_x). a and b
-// are the two halves of x; the stage twiddle is table[(j >> t) << t];
-// u = a + b and v = (a - b) * w go straight to their interleaved slots.
-KERNEL dif_kernel(const Fe* __restrict__ x, const Fe* __restrict__ table,
-                  Fe* __restrict__ out, uint32_t half, uint32_t t) {
-  FOR_EACH(j, half) {
-    const Fe a = x[j], b = x[j + half];
-    out[2 * j] = field::add(a, b);
-    out[2 * j + 1] = field::mul(field::sub(a, b), table[(j >> t) << t]);
-  }
-}
-
 // A1, redesigned: several Pease DIF stages in one pass. A pass at
 // stages s .. s+k-1 over n = 2^log_n elements works on n / 2^k groups.
 // Group g holds the 2^k elements x[g + m * n/2^k] (m < 2^k) and runs
@@ -88,6 +77,22 @@ FIELD_FN void dif_butterfly(const Fe& a, const Fe& b, const Fe& w, Fe& u,
   v = field::mul(field::sub(a, b), w);
 }
 
+// The transform's last stage (t = log n - 1) reads table[0] = 1 (the
+// table is a power table), so its butterfly is u = a + b, v = a - b,
+// with no product. With `scaled`, the scale sv (the LDE's 1/n)
+// multiplies both here, so it takes no launch and no pass over the
+// array. (sv comes by value: read through a pointer here, it cost the
+// pass kernel more registers.)
+FIELD_FN void dif_last_butterfly(const Fe& a, const Fe& b, bool scaled,
+                                 const Fe& sv, Fe& u, Fe& v) {
+  u = field::add(a, b);
+  v = field::sub(a, b);
+  if (scaled) {
+    u = field::mul(u, sv);
+    v = field::mul(v, sv);
+  }
+}
+
 #ifdef __CUDACC__
 // One block per tile of 2^(k + log_c) elements: C = 2^log_c consecutive
 // groups (C > 1 only for a pass shorter than the transform's pass
@@ -98,9 +103,11 @@ FIELD_FN void dif_butterfly(const Fe& a, const Fe& b, const Fe& w, Fe& u,
 // sectors always; the store is one contiguous run of the tile. With
 // about two warps per scheduler at 2^16 points the stages are bound by
 // latency, so each twiddle is loaded a stage ahead, as two 16-byte
-// loads through the read-only cache.
+// loads through the read-only cache. The pass that ends the transform
+// runs its last stage as dif_last_butterfly.
 __global__ void dif_pass_kernel(const Fe* __restrict__ x,
                                 const Fe* __restrict__ table,
+                                const Fe* __restrict__ scale,
                                 Fe* __restrict__ out, uint32_t log_n,
                                 uint32_t s, uint32_t k, uint32_t log_c) {
   extern __shared__ Fe loc[];  // loc[c << k | m]
@@ -115,18 +122,28 @@ __global__ void dif_pass_kernel(const Fe* __restrict__ x,
   const uint32_t half = 1u << (k - 1);
   const uint32_t c = threadIdx.x >> (k - 1), r = threadIdx.x & (half - 1);
   Fe* grp = loc + (c << k);
+  const uint32_t twiddled = s + k == log_n ? k - 1 : k;
   const uint4* tw = reinterpret_cast<const uint4*>(table);
-  uint32_t idx = dif_twiddle_index(r, g0 + c, 0, log_n, k, s);
-  uint4 w0 = __ldg(tw + 2 * idx), w1 = __ldg(tw + 2 * idx + 1);
+  uint4 w0 = {}, w1 = {};
+  if (twiddled) {
+    const uint32_t idx = dif_twiddle_index(r, g0 + c, 0, log_n, k, s);
+    w0 = __ldg(tw + 2 * idx);
+    w1 = __ldg(tw + 2 * idx + 1);
+  }
   for (uint32_t i = 0; i < k; ++i) {
-    const Fe w = {{w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w}};
-    if (i + 1 < k) {
-      idx = dif_twiddle_index(r, g0 + c, i + 1, log_n, k, s);
-      w0 = __ldg(tw + 2 * idx);
-      w1 = __ldg(tw + 2 * idx + 1);
-    }
     Fe u, v;
-    dif_butterfly(grp[r], grp[r + half], w, u, v);
+    if (i < twiddled) {
+      const Fe w = {{w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w}};
+      if (i + 1 < twiddled) {
+        const uint32_t idx = dif_twiddle_index(r, g0 + c, i + 1, log_n, k, s);
+        w0 = __ldg(tw + 2 * idx);
+        w1 = __ldg(tw + 2 * idx + 1);
+      }
+      dif_butterfly(grp[r], grp[r + half], w, u, v);
+    } else {
+      dif_last_butterfly(grp[r], grp[r + half], scale != nullptr,
+                         scale ? *scale : Fe{}, u, v);
+    }
     __syncthreads();
     grp[2 * r] = u;
     grp[2 * r + 1] = v;
@@ -138,37 +155,31 @@ __global__ void dif_pass_kernel(const Fe* __restrict__ x,
 #else
 // The same pass on the host: groups one after another, local stages in
 // order.
-static void dif_pass_host(const Fe* x, const Fe* table, Fe* out,
-                          uint32_t log_n, uint32_t s, uint32_t k) {
+static void dif_pass_host(const Fe* x, const Fe* table, const Fe* scale,
+                          Fe* out, uint32_t log_n, uint32_t s, uint32_t k) {
   const uint32_t groups = 1u << (log_n - k), size = 1u << k;
   const uint32_t half = size / 2;
+  const uint32_t twiddled = s + k == log_n ? k - 1 : k;
+  const Fe sv = scale ? *scale : Fe{};
   std::vector<Fe> loc(size), nxt(size);
   for (uint32_t g = 0; g < groups; ++g) {
     for (uint32_t m = 0; m < size; ++m) loc[m] = x[g + m * groups];
     for (uint32_t i = 0; i < k; ++i) {
-      for (uint32_t r = 0; r < half; ++r)
-        dif_butterfly(loc[r], loc[r + half],
-                      table[dif_twiddle_index(r, g, i, log_n, k, s)],
-                      nxt[2 * r], nxt[2 * r + 1]);
+      for (uint32_t r = 0; r < half; ++r) {
+        if (i < twiddled)
+          dif_butterfly(loc[r], loc[r + half],
+                        table[dif_twiddle_index(r, g, i, log_n, k, s)],
+                        nxt[2 * r], nxt[2 * r + 1]);
+        else
+          dif_last_butterfly(loc[r], loc[r + half], scale != nullptr, sv,
+                             nxt[2 * r], nxt[2 * r + 1]);
+      }
       loc.swap(nxt);
     }
     for (uint32_t m = 0; m < size; ++m) out[g * size + m] = loc[m];
   }
 }
 #endif
-
-// A3: DIT stage on interleaved pairs (replaces _dit_kernel):
-// u = a + w*b to the low half, v = a - w*b to the high half. The first
-// design of the forward NTT, one launch per stage; off every path.
-KERNEL dit_kernel(const Fe* __restrict__ x, const Fe* __restrict__ table,
-                  Fe* __restrict__ out, uint32_t half, uint32_t t) {
-  FOR_EACH(j, half) {
-    const Fe a = x[2 * j];
-    const Fe wb = field::mul(table[(j >> t) << t], x[2 * j + 1]);
-    out[j] = field::add(a, wb);
-    out[j + half] = field::sub(a, wb);
-  }
-}
 
 // A3, redesigned: several DIT stages in one pass, the transpose of the
 // DIF pass. A pass at stages s+k-1 down to s over n = 2^log_n elements
@@ -314,11 +325,67 @@ static void dit_pass_host(const Fe* x, const Fe* table, Fe* out,
 }
 #endif
 
-// A2: x * s for a scalar s (replaces _scale_kernel).
-KERNEL scale_kernel(const Fe* __restrict__ x, const Fe* __restrict__ s,
-                    Fe* __restrict__ out, uint32_t n) {
-  const Fe sv = *s;
-  FOR_EACH(i, n) { out[i] = field::mul(x[i], sv); }
+// A2 (x * s, acc + x * s) and A8's cube on one elementwise frame
+// (replace _scale_kernel via scale_t, and _cube_kernel via _ew). Each
+// op's apply computes element i from x, the accumulator y and the
+// scalar *s, reading only what it uses.
+#ifdef __CUDACC__
+#define OP_FN static __host__ __device__ __forceinline__
+#else
+#define OP_FN static inline
+#endif
+
+// *s is read per element (a cached broadcast load): hoisted into
+// registers ahead of the loop it took more registers and instructions
+// and measured slower.
+struct ScaleOp {
+  OP_FN Fe apply(const Fe* x, const Fe*, const Fe* s, uint32_t i) {
+    return field::mul(x[i], *s);
+  }
+};
+
+struct ScaleAccOp {
+  OP_FN Fe apply(const Fe* x, const Fe* y, const Fe* s, uint32_t i) {
+    return field::add(y[i], field::mul(x[i], *s));
+  }
+};
+
+struct CubeOp {
+  OP_FN Fe apply(const Fe* x, const Fe*, const Fe*, uint32_t i) {
+    return field::cube(x[i]);
+  }
+};
+
+// One element per thread. On the H100 these maps are bound by the issue
+// rate of their modmuls' integer instructions (a carry chain is serial,
+// so a thread has no independent work to overlap), not by their bytes:
+// with the inputs in L2 they take most of the time they take from
+// device memory (chip_smoke.py phase 2), and resident warps hide that
+// latency best. A persistent grid that streams tiles through shared
+// memory by cp.async ahead of the arithmetic, and one that prefetches
+// the next element in registers, both measured slower at 2^19; blocks
+// of 128 threads beat 256 for cube and tie for scale.
+template <class Op>
+KERNEL stream_map_kernel(const Fe* __restrict__ x, const Fe* __restrict__ y,
+                         const Fe* __restrict__ s, Fe* __restrict__ out,
+                         uint32_t n) {
+  FOR_EACH(i, n) out[i] = Op::apply(x, y, s, i);
+}
+
+template <class Op>
+int stream_map(const Fe* x, const Fe* y, const Fe* s, Fe* out, uint32_t n,
+               void* stream) {
+#ifdef __CUDACC__
+  constexpr uint32_t threads = 128;
+  if (n)
+    stream_map_kernel<Op><<<(n + threads - 1) / threads, threads, 0,
+                            (cudaStream_t)stream>>>(x, y, s, out, n);
+  return (int)cudaGetLastError();
+#else
+  (void)stream;
+  stream_map_kernel<Op>(x, y, s, out, n);
+  return 0;
+#endif
 }
 
 // A4: constraint, quotient and boundary map (replaces _db_kernel):
@@ -345,30 +412,6 @@ KERNEL db_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
                             k_tab[i & k_mask]);
     d_out[i] = field::mul(field::mul(c, field::sub(x, last_v)),
                           zni_tab[i & zni_mask]);
-    const Fe i_ev = field::add(ia_v, field::mul(slope_v, x));
-    b_out[i] = field::mul(field::sub(pv, i_ev), iz2[i]);
-  }
-}
-
-// A4 as first written: the cube as two general multiplies, the tables
-// read modulo their length. Off every path; chip_smoke.py times it
-// against db_kernel.
-KERNEL db_v1_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
-                    const Fe* __restrict__ k_tab, uint32_t k_len,
-                    const Fe* __restrict__ zni_tab, uint32_t zni_len,
-                    const Fe* __restrict__ iz2, const Fe* __restrict__ last,
-                    const Fe* __restrict__ slope, const Fe* __restrict__ ia,
-                    Fe* __restrict__ d_out, Fe* __restrict__ b_out,
-                    uint32_t n, uint32_t shift) {
-  const Fe last_v = *last, slope_v = *slope, ia_v = *ia;
-  FOR_EACH(i, n) {
-    const uint32_t ir = i + shift < n ? i + shift : i + shift - n;
-    const Fe pv = p[i], x = xs[i];
-    const Fe c = field::sub(
-        field::sub(p[ir], field::mul(field::mul(pv, pv), pv)),
-        k_tab[i % k_len]);
-    d_out[i] = field::mul(field::mul(c, field::sub(x, last_v)),
-                          zni_tab[i % zni_len]);
     const Fe i_ev = field::add(ia_v, field::mul(slope_v, x));
     b_out[i] = field::mul(field::sub(pv, i_ev), iz2[i]);
   }
@@ -413,8 +456,8 @@ KERNEL fold4_kernel(const Fe* __restrict__ values, const Fe* __restrict__ ip,
 }
 
 // A7/A8: elementwise field ops with periodic operands (replace
-// _mul_kernel via mul_t and mul_tab_t, and _add_kernel, _sub_kernel,
-// _cube_kernel via _ew). Each operand is read as x[i % len]: a full
+// _mul_kernel via mul_t and mul_tab_t, and _add_kernel and _sub_kernel
+// via _ew). Each operand is read as x[i % len]: a full
 // array (len = n), a periodic table (len = 8, or a constant column's
 // extension) or a constant (len = 1), so no tiled or broadcast copy
 // is ever built.
@@ -436,54 +479,42 @@ KERNEL sub_kernel(const Fe* __restrict__ a, uint32_t a_len,
   FOR_EACH(i, n) { out[i] = field::sub(a[i % a_len], b[i % b_len]); }
 }
 
-KERNEL cube_kernel(const Fe* __restrict__ a, Fe* __restrict__ out,
-                   uint32_t n) {
-  FOR_EACH(i, n) { out[i] = field::cube(a[i]); }
-}
-
 #define F(ptr) ((const Fe*)(ptr))
 #define W(ptr) ((Fe*)(ptr))
 
 extern "C" {
 
-int starks_dif_stage(const void* x, const void* table, void* out, uint32_t n,
-                     uint32_t t, void* stream) {
-  LAUNCH(dif_kernel, n / 2, stream, F(x), F(table), W(out), n / 2, t);
-}
-
 // The DIF transform as ceil(log_n / k) passes of at most k stages
 // (1 <= k <= 10: a tile of 2^k elements, 2^(k-1) threads and 32 * 2^k
 // bytes of shared memory, under the 48 KB a launch gets without opting
-// in). The passes ping-pong between out and scratch, so the last one
-// writes out; x is only read, and scratch is unused for one pass.
-int starks_ntt_dif(const void* x, const void* table, void* out,
-                   void* scratch, uint32_t n, uint32_t k, void* stream) {
+// in). table[0] must be 1. With s not null the outputs are multiplied
+// by *s in the last stage. The passes ping-pong between out and
+// scratch, so the last one writes out; x is only read, and scratch is
+// unused for one pass.
+int starks_ntt_dif(const void* x, const void* table, const void* s,
+                   void* out, void* scratch, uint32_t n, uint32_t k,
+                   void* stream) {
   uint32_t log_n = 0;
   while ((1u << log_n) < n) ++log_n;
   const uint32_t passes = (log_n + k - 1) / k;
   const Fe* src = F(x);
-  for (uint32_t p = 0, s = 0; s < log_n; ++p, s += k) {
-    const uint32_t kk = log_n - s < k ? log_n - s : k;
+  for (uint32_t p = 0, t = 0; t < log_n; ++p, t += k) {
+    const uint32_t kk = log_n - t < k ? log_n - t : k;
     Fe* dst = (passes - 1 - p) % 2 ? W(scratch) : W(out);
 #ifdef __CUDACC__
     const uint32_t blocks = n >> k, threads = 1u << (k - 1);
     const size_t smem = sizeof(Fe) << k;
     dif_pass_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        src, F(table), dst, log_n, s, kk, k - kk);
+        src, F(table), F(s), dst, log_n, t, kk, k - kk);
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
 #else
     (void)stream;
-    dif_pass_host(src, F(table), dst, log_n, s, kk);
+    dif_pass_host(src, F(table), F(s), dst, log_n, t, kk);
 #endif
     src = dst;
   }
   return 0;
-}
-
-int starks_dit_stage(const void* x, const void* table, void* out, uint32_t n,
-                     uint32_t t, void* stream) {
-  LAUNCH(dit_kernel, n / 2, stream, F(x), F(table), W(out), n / 2, t);
 }
 
 // The DIT transform (bit-reversed in, natural out) as ceil(log_n / k)
@@ -540,9 +571,11 @@ int starks_ntt_dit(const void* x, const void* table, void* out,
   return 0;
 }
 
-int starks_scale(const void* x, const void* s, void* out, uint32_t n,
-                 void* stream) {
-  LAUNCH(scale_kernel, n, stream, F(x), F(s), W(out), n);
+// x * s, or acc + x * s when acc is not null.
+int starks_scale(const void* x, const void* s, const void* acc, void* out,
+                 uint32_t n, void* stream) {
+  return acc ? stream_map<ScaleAccOp>(F(x), F(acc), F(s), W(out), n, stream)
+             : stream_map<ScaleOp>(F(x), nullptr, F(s), W(out), n, stream);
 }
 
 int starks_db_map(const void* p, const void* xs, const void* k_tab,
@@ -554,16 +587,6 @@ int starks_db_map(const void* p, const void* xs, const void* k_tab,
   LAUNCH(db_kernel, n, stream, F(p), F(xs), F(k_tab), k_len - 1,
          F(zni_tab), zni_len - 1, F(iz2), F(last), F(slope), F(ia),
          W(d_out), W(b_out), n, shift);
-}
-
-int starks_db_map_v1(const void* p, const void* xs, const void* k_tab,
-                     uint32_t k_len, const void* zni_tab, uint32_t zni_len,
-                     const void* iz2, const void* last, const void* slope,
-                     const void* ia, void* d_out, void* b_out, uint32_t n,
-                     uint32_t shift, void* stream) {
-  LAUNCH(db_v1_kernel, n, stream, F(p), F(xs), F(k_tab), k_len, F(zni_tab),
-         zni_len, F(iz2), F(last), F(slope), F(ia), W(d_out), W(b_out), n,
-         shift);
 }
 
 int starks_l_map(const void* d, const void* p, const void* b, const void* cp,
@@ -596,7 +619,7 @@ int starks_sub(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
 }
 
 int starks_cube(const void* a, void* out, uint32_t n, void* stream) {
-  LAUNCH(cube_kernel, n, stream, F(a), W(out), n);
+  return stream_map<CubeOp>(F(a), nullptr, nullptr, W(out), n, stream);
 }
 
 }  // extern "C"

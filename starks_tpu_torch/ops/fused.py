@@ -13,10 +13,11 @@ exists at any size.
   the DIF pass kernel, each several stages in shared memory. `ntt_dit`
   is its transpose (bit-reversed in, natural out), a few launches of the
   DIT pass kernel.
-- `lde`: iNTT (DIF) -> scale by 1/n -> forward NTT (DIT) of the stride-8
-  zero interleave (for c < n, rev_{log 8n}(c) = 8 * rev_{log n}(c), so
-  zero-padding in the coefficient domain is a strided spread), which
-  the first DIT pass reads from the compact coefficients.
+- `lde`: iNTT (DIF, whose last stage scales by 1/n) -> forward NTT
+  (DIT) of the stride-8 zero interleave (for c < n, rev_{log 8n}(c) =
+  8 * rev_{log n}(c), so zero-padding in the coefficient domain is a
+  strided spread), which the first DIT pass reads from the compact
+  coefficients.
 - `fri_commit`: per round, fold by 4 at the Fiat-Shamir point (round r
   reads round 0's u-table at stride 4^r), then the column tree, the
   query indices and the column and row bundles.
@@ -74,10 +75,11 @@ class FusedPlan:
             device)                                      # [N/4, 8]
 
 
-def ntt_dif(x, table):
+def ntt_dif(x, table, scale=None):
     """Constant-geometry DIF over [n, 8]: natural order in, bit-reversed
-    out. `table` is the plain power table of the transform's root."""
-    return plimbs.dif_transform(x, table)
+    out. `table` is the plain power table of the transform's root. With
+    `scale` ([8]) every output is multiplied by it, in the last stage."""
+    return plimbs.dif_transform(x, table, scale=scale)
 
 
 def ntt_dit(x, table, ext: int = 1):
@@ -91,9 +93,10 @@ def lde(trace, inv_small, n_inv_small, fwd_big):
     """Low-degree extension of trace [steps, 8] onto the precision-point
     domain of `fwd_big` (its plain power table). The coefficients are
     the stride-ext nonzero inputs of the forward NTT, which reads them
-    compact (`ntt_dit`'s ext), so no zero-padded array is built."""
+    compact (`ntt_dit`'s ext), so no zero-padded array is built; the 1/n
+    is applied in the inverse NTT's last stage."""
     steps = trace.shape[0]
-    coeffs = plimbs.scale(ntt_dif(trace, inv_small), n_inv_small)
+    coeffs = ntt_dif(trace, inv_small, scale=n_inv_small)
     return ntt_dit(coeffs, fwd_big, ext=fwd_big.shape[0] // steps)
 
 

@@ -12,9 +12,9 @@ counts each wrapper's kernel launches (`dif_transform` and
 
 Bounds on the card (32-byte elements, n elements per array): bytes over
 3.35 TB/s against 32-bit integer multiply-adds over the card's peak
-rate, 148 per modmul (chip_smoke.py). The NTT stages, scale, the L map
-and the elementwise ops (mul, add, sub, cube) are bound by their bytes;
-the D/B map, fold4 and the whole DIF and DIT transforms (log n stages of
+rate, 148 per modmul (chip_smoke.py). Scale, the L map and the
+elementwise ops (mul, add, sub, cube) are bound by their bytes; the D/B
+map, fold4 and the whole DIF and DIT transforms (log n stages of
 butterflies over a few passes of bytes) by their operations. PERF.md
 gives each kernel's time beside its bound.
 """
@@ -28,8 +28,8 @@ NUM_WORDS = fl.NUM_WORDS
 L16 = fl.to_limbs16
 
 LAUNCHES = dict.fromkeys(
-    ["dif_stage", "dif_pass", "dit_stage", "dit_pass", "scale", "db_map",
-     "db_map_v1", "l_map", "fold4", "mul", "add", "sub", "cube"], 0)
+    ["dif_pass", "dit_pass", "scale", "db_map", "l_map", "fold4", "mul",
+     "add", "sub", "cube"], 0)
 
 # Stages per DIF or DIT pass: at most DIF_PASS_MAX_STAGES (a tile of 2^k
 # elements in shared memory), spread evenly over the fewest passes.
@@ -41,9 +41,11 @@ def reset_launches():
         LAUNCHES[name] = 0
 
 
-def _on_card(*tensors) -> bool:
+def _on_card(*operands) -> bool:
     """True for CUDA operands the kernels take, False for CPU operands;
-    raises for anything else."""
+    raises for anything else. None operands (optional ones left out)
+    are skipped."""
+    tensors = [t for t in operands if t is not None]
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -65,11 +67,12 @@ def _on_card(*tensors) -> bool:
 def _launch(name, device, *args, entry=None, launches=1):
     """Call the C entry point `entry` (default starks_<name>) on the
     current stream and count its `launches` kernel launches under
-    `name`; tensors pass as pointers, ints as uint32."""
+    `name`; tensors pass as pointers, None as a null pointer, ints as
+    uint32."""
     entry = entry or "starks_" + name
     fn = getattr(_build.load(), entry)
     for a in args:
-        if not isinstance(a, torch.Tensor) and not 0 <= a < 2**31:
+        if isinstance(a, int) and not 0 <= a < 2**31:
             raise ValueError(f"kernel {name}: size argument {a} out of "
                              f"range")
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
@@ -83,14 +86,6 @@ def _launch(name, device, *args, entry=None, launches=1):
 def _check_size(n: int):
     if n < 2 or n & (n - 1) or n >= 2**31:
         raise ValueError(f"size {n} is not a power of two in [2, 2^31)")
-
-
-def _check_stage(n: int, table, t: int):
-    _check_size(n)
-    if not 0 <= t < n.bit_length() - 1:
-        raise ValueError(f"stage {t} out of range for size {n}")
-    if table.shape[0] < n // 2:
-        raise ValueError("twiddle table shorter than n/2")
 
 
 def _check_tables(*tables):
@@ -115,26 +110,6 @@ def dif_stage_plain(x, table, t: int):
     return fl.from_limbs16(torch.stack([u, v], dim=1).reshape(n, -1))
 
 
-def dif_stage(x, table, t: int):
-    """One Pease DIF stage over x [n, 8]: a = x[:n/2], b = x[n/2:],
-    w = table[(j >> t) << t]; out[2j] = a + b, out[2j+1] = (a - b) * w.
-
-    Replaces `_dif_kernel` (starks_tpu/ops/plimbs.py:154, launched by
-    `dif_stage_x`, :367). The kernel reads the halves and the twiddle
-    table by offset and writes the interleaved output itself, so no
-    stacked twiddle table or interleave copy is built. Bound: bytes,
-    64n + 32*(n/2 >> t). The earlier design of the inverse NTT: the
-    proofs run `dif_transform`, and chip_smoke.py times the two against
-    each other."""
-    n = x.shape[0]
-    _check_stage(n, table, t)
-    if not _on_card(x, table):
-        return dif_stage_plain(x, table, t)
-    out = torch.empty_like(x)
-    _launch("dif_stage", x.device, x, table, out, n, t)
-    return out
-
-
 # -- A1, redesigned: the DIF transform in passes of several stages ------
 
 def dif_pass_stages(n: int) -> int:
@@ -145,39 +120,46 @@ def dif_pass_stages(n: int) -> int:
     return -(-logn // passes)
 
 
-def dif_transform_plain(x, table):
+def dif_transform_plain(x, table, scale=None):
     for t in range(x.shape[0].bit_length() - 1):
         x = dif_stage_plain(x, table, t)
-    return x
+    return x if scale is None else scale_plain(x, scale)
 
 
-def dif_transform(x, table, k: int | None = None):
+def dif_transform(x, table, k: int | None = None, scale=None):
     """The whole Pease DIF network over x [n, 8] (natural order in,
-    bit-reversed out), the same as `dif_stage` for t = 0 .. log n - 1,
-    in ceil(log n / k) launches of `dif_pass_kernel`, each running up to
-    k consecutive stages on tiles of 2^k elements in shared memory (k
-    defaults to `dif_pass_stages(n)`).
+    bit-reversed out), the same as `dif_stage_plain` for t = 0 .. log n
+    - 1, in ceil(log n / k) launches of `dif_pass_kernel`, each running
+    up to k consecutive stages on tiles of 2^k elements in shared memory
+    (k defaults to `dif_pass_stages(n)`). `table` is the power table of
+    the transform's root, so table[0] = 1 and the last stage has no
+    twiddle product. With `scale` (an [8] element) every output is
+    multiplied by it, in the last stage: the LDE's 1/n costs no launch.
 
     Replaces the chain of `_dif_kernel` launches of `ntt_dif_pl`
     (starks_tpu/ops/plimbs.py:154 via `dif_stage_x`, :355), one per
-    stage. Bound: operations, log n stages of n/2 butterflies (a modmul
-    and two adds each); bytes 64n + 32 * n/2 per pass."""
+    stage, and with `scale` the `_scale_kernel` launch after it (:175,
+    via `scale_t`, :400). Bound: operations, log n stages of n/2
+    butterflies (a modmul and two adds each), plus n/2 modmuls with
+    `scale`; bytes 64n + 32 * n/2 per pass."""
     n = x.shape[0]
     _check_size(n)
     if table.shape[0] < n // 2:
         raise ValueError("twiddle table shorter than n/2")
+    if scale is not None and scale.shape != (NUM_WORDS,):
+        raise ValueError("scale must be one [8] element")
     logn = n.bit_length() - 1
     k = dif_pass_stages(n) if k is None else k
     if not 1 <= k <= DIF_PASS_MAX_STAGES:
         raise ValueError(f"stages per pass {k} not in [1, "
                          f"{DIF_PASS_MAX_STAGES}]")
     k = min(k, logn)
-    if not _on_card(x, table):
-        return dif_transform_plain(x, table)
+    if not _on_card(x, table, scale):
+        return dif_transform_plain(x, table, scale)
     passes = -(-logn // k)
     out = torch.empty_like(x)
     scratch = torch.empty_like(x) if passes > 1 else out
-    _launch("dif_pass", x.device, x, table, out, scratch, n, k,
+    _launch("dif_pass", x.device, x, table, scale, out, scratch, n, k,
             entry="starks_ntt_dif", launches=passes)
     return out
 
@@ -191,24 +173,6 @@ def dit_stage_plain(x, table, t: int):
     wb = fl.mul16(L16(_stage_twiddles(table, t, half)), pairs[:, 1])
     return fl.from_limbs16(torch.cat([fl.add16(pairs[:, 0], wb),
                                       fl.sub16(pairs[:, 0], wb)]))
-
-
-def dit_stage(x, table, t: int):
-    """One DIT stage over x [n, 8]: a = x[2j], b = x[2j+1],
-    w = table[(j >> t) << t]; out[j] = a + w*b, out[j + n/2] = a - w*b.
-
-    Replaces `_dit_kernel` (starks_tpu/ops/plimbs.py:161, launched by
-    `dit_stage_t`, :385). Pairs are read in place, so no de-interleave
-    or concatenate copy is built. Bound: bytes, 64n + 32*(n/2 >> t). The
-    earlier design of the forward NTT: the proofs run `dit_transform`,
-    and chip_smoke.py times the two against each other."""
-    n = x.shape[0]
-    _check_stage(n, table, t)
-    if not _on_card(x, table):
-        return dit_stage_plain(x, table, t)
-    out = torch.empty_like(x)
-    _launch("dit_stage", x.device, x, table, out, n, t)
-    return out
 
 
 # -- A3, redesigned: the DIT transform in passes of several stages ------
@@ -227,10 +191,10 @@ def dit_transform_plain(x, table, ext: int = 1):
 
 def dit_transform(x, table, k: int | None = None, ext: int = 1):
     """The whole DIT network (bit-reversed in, natural out), the same as
-    `dit_stage` for t = log n - 1 down to 0, in ceil(log n / k) launches
-    of `dit_pass_kernel`, each up to k stages on tiles of 2^k elements in
-    shared memory (k defaults to `dif_pass_stages(n)`; the shorter pass
-    comes first). With ext > 1, x [n / ext, 8] holds
+    `dit_stage_plain` for t = log n - 1 down to 0, in ceil(log n / k)
+    launches of `dit_pass_kernel`, each up to k stages on tiles of 2^k
+    elements in shared memory (k defaults to `dif_pass_stages(n)`; the
+    shorter pass comes first). With ext > 1, x [n / ext, 8] holds
     the nonzero inputs, at multiples of ext (the LDE's zero-interleaved
     coefficients): the first pass reads them and skips the log2(ext)
     stages that only copy, so no zero-padded array is built.
@@ -268,21 +232,29 @@ def dit_transform(x, table, k: int | None = None, ext: int = 1):
 
 # -- A2: scale ----------------------------------------------------------
 
-def scale_plain(x, s):
-    return fl.mul(x, s[None])
+def scale_plain(x, s, acc=None):
+    y = fl.mul(x, s[None])
+    return y if acc is None else add_plain(acc, y)
 
 
-def scale(x, s):
-    """x * s for a scalar element s [8].
+def scale(x, s, acc=None):
+    """x * s for a scalar element s [8], or acc + x * s with an
+    accumulator acc [n, 8] (an AIR's running sum of scaled terms, so no
+    add launch follows).
 
     Replaces `_scale_kernel` (starks_tpu/ops/plimbs.py:175, launched by
-    `scale_t`, :400). Bound: bytes, 64n."""
+    `scale_t`, :400), and with acc the `_add_kernel` launch (`add_t`,
+    :301) that adds its result into the sum. Runs `stream_map_kernel`
+    (csrc/kernels.cu), as cube does. Bound: bytes, 64n, or 96n with
+    acc."""
     if s.shape != (NUM_WORDS,):
         raise ValueError("s must be one [8] element")
-    if not _on_card(x, s):
-        return scale_plain(x, s)
+    if acc is not None and acc.shape != x.shape:
+        raise ValueError("acc must have the shape of x")
+    if not _on_card(x, s, acc):
+        return scale_plain(x, s, acc)
     out = torch.empty_like(x)
-    _launch("scale", x.device, x, s, out, x.shape[0])
+    _launch("scale", x.device, x, s, acc, out, x.shape[0])
     return out
 
 
@@ -302,8 +274,19 @@ def db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
     return fl.from_limbs16(d), fl.from_limbs16(b)
 
 
-def _db_args(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
-    """Check db_map's arguments; True if they lie on the card."""
+def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+    """The fused D/B map over the evaluation domain:
+      C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
+      B = (P - (ia + slope*x)) * Z2^-1,
+    with P(g1 x) = p[(i + shift) % n], K and Znum^-1 periodic tables of
+    power-of-two length (the MiMC setup's are ext * len(constants) and
+    ext) read modulo it, and last, slope, ia scalars [8]. Returns (D, B).
+
+    Replaces `_db_kernel` (starks_tpu/ops/plimbs.py:181, launched by
+    `db_map_t`, :418). The kernel reads P(g1 x) by offset, so the rolled
+    copy of P is never built, and the tables with a mask. Bound:
+    operations, 6 modmuls per element (bytes 160n: P, x, 1/Z2 in; D, B
+    out); P^2 is a dedicated square (`field::sqr`)."""
     n = p.shape[0]
     _check_size(n)
     for t in (xs, iz2):
@@ -319,45 +302,13 @@ def _db_args(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
         if t.shape[0] & (t.shape[0] - 1):
             raise ValueError("K and Znum^-1 tables must have power-of-two "
                              "length")
-    return _on_card(p, xs, k_tab, zni_tab, iz2, last, slope, ia)
-
-
-def _db_launch(name, p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift):
+    if not _on_card(p, xs, k_tab, zni_tab, iz2, last, slope, ia):
+        return db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia,
+                            shift)
     d, b = torch.empty_like(p), torch.empty_like(p)
-    _launch(name, p.device, p, xs, k_tab, k_tab.shape[0], zni_tab,
-            zni_tab.shape[0], iz2, last, slope, ia, d, b, p.shape[0], shift)
+    _launch("db_map", p.device, p, xs, k_tab, k_tab.shape[0], zni_tab,
+            zni_tab.shape[0], iz2, last, slope, ia, d, b, n, shift)
     return d, b
-
-
-def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
-    """The fused D/B map over the evaluation domain:
-      C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
-      B = (P - (ia + slope*x)) * Z2^-1,
-    with P(g1 x) = p[(i + shift) % n], K and Znum^-1 periodic tables of
-    power-of-two length (the MiMC setup's are ext * len(constants) and
-    ext) read modulo it, and last, slope, ia scalars [8]. Returns (D, B).
-
-    Replaces `_db_kernel` (starks_tpu/ops/plimbs.py:181, launched by
-    `db_map_t`, :418). The kernel reads P(g1 x) by offset, so the rolled
-    copy of P is never built, and the tables with a mask. Bound:
-    operations, 6 modmuls per element (bytes 160n: P, x, 1/Z2 in; D, B
-    out); P^2 is a dedicated square (`field::sqr`)."""
-    if not _db_args(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift):
-        return db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia,
-                            shift)
-    return _db_launch("db_map", p, xs, k_tab, zni_tab, iz2, last, slope,
-                      ia, shift)
-
-
-def db_map_v1(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
-    """`db_map` as first written (one element per thread, the cube as
-    two general multiplies, the tables read modulo their length). Off
-    every path: chip_smoke.py times it against `db_map`."""
-    if not _db_args(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift):
-        return db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia,
-                            shift)
-    return _db_launch("db_map_v1", p, xs, k_tab, zni_tab, iz2, last, slope,
-                      ia, shift)
 
 
 # -- A5: linear combination ---------------------------------------------
@@ -510,8 +461,9 @@ def cube(a):
     """a^3 over [n, 8].
 
     Replaces `_cube_kernel` (starks_tpu/ops/plimbs.py:289, launched by
-    `cube_t` through `_ew`, :301). Bound: bytes, 64n, narrowly over its
-    two modmuls per element (296 multiply-adds)."""
+    `cube_t` through `_ew`, :301). Runs `stream_map_kernel`
+    (csrc/kernels.cu), as scale does. Bound: bytes, 64n, narrowly over
+    its modmul and square per element (240 multiply-adds)."""
     _check_tables(a)
     if not _on_card(a):
         return cube_plain(a)

@@ -4,8 +4,9 @@ Port of the single-device path of `starks_tpu/prover.py`
 (`mk_mimc_proof` -> `_prove_from_trace_fused` -> `post_trace_pl`). The
 pipeline is identical in math and transcript bytes (SURVEY.md §4.1):
 
-  host trace -> LDE (DIF/scale/DIT kernels) -> D/B map kernel ->
-  commit P||D||B -> Fiat-Shamir weights -> L map kernel -> commit L ->
+  host trace -> LDE (DIF kernel, 1/n in its last stage; DIT kernel)
+  -> D/B map kernel -> commit P||D||B -> Fiat-Shamir weights -> L map
+  kernel -> commit L ->
   spot-check bundles -> FRI (fold4 kernel per round) ->
   one device-to-host copy -> host byte assembly.
 

@@ -54,7 +54,7 @@ def test_dif_stage_matches_xla(t):
     tw = jfused._stage_twiddles(jtab, t, n // 2)
     a, b = jx[:n // 2], jx[n // 2:]
     want = jnp.stack([_add(a, b), _mul(_sub(a, b), tw)], axis=1)
-    assert _same(plimbs.dif_stage(x, tab, t), want.reshape(n, 16))
+    assert _same(plimbs.dif_stage_plain(x, tab, t), want.reshape(n, 16))
 
 
 @pytest.mark.parametrize("t", [0, 3, 7])
@@ -66,7 +66,7 @@ def test_dit_stage_matches_xla(t):
     pairs = jx.reshape(n // 2, 2, 16)
     wb = _mul(tw, pairs[:, 1])
     want = jnp.concatenate([_add(pairs[:, 0], wb), _sub(pairs[:, 0], wb)])
-    assert _same(plimbs.dit_stage(x, tab, t), want)
+    assert _same(plimbs.dit_stage_plain(x, tab, t), want)
 
 
 def test_scale_matches_xla():
@@ -74,6 +74,16 @@ def test_scale_matches_xla():
     js, s = _rand(1, 6)
     want = _mul(jx, jnp.broadcast_to(js, jx.shape))
     assert _same(plimbs.scale(x, s[0]), want)
+
+
+def test_scale_with_acc_matches_xla():
+    """scale(x, s, acc=a) = a + x * s, as JAX's AIR sums a scaled term
+    into its running sum (add_t after scale_t)."""
+    jx, x = _rand(256, 7, edge=True)
+    ja, a = _rand(256, 8, edge=True)
+    js, s = _rand(1, 9)
+    want = _add(ja, _mul(jx, jnp.broadcast_to(js, jx.shape)))
+    assert _same(plimbs.scale(x, s[0], acc=a), want)
 
 
 def test_db_map_matches_xla():
@@ -206,6 +216,28 @@ def test_dif_transform_plain_matches_stage_chain(n, k):
         want = plimbs.dif_stage_plain(want, tab, t)
     assert plimbs.dif_transform(x, tab, k).equal(want)
     assert plimbs.dif_transform(x, tab).equal(want)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dif_case(n):
+    """(JAX input, input, power table, JAX ntt_dif output) at n points,
+    seeded."""
+    g = pow(7, (M - 1) // n, M)
+    table = jfused._power_table_np(g, n)
+    jx, x = _rand(n, 130, edge=True)
+    want = jax.jit(jfused.ntt_dif)(jx, jnp.asarray(
+        jfused._stacked_twiddles(table)))
+    return jx, x, fl.from_jax_limbs(table), want
+
+
+def test_dif_transform_scaled_matches_xla():
+    """dif_transform(x, tab, scale=s) equals JAX ntt_dif followed by the
+    XLA multiply by s (the LDE's iNTT and 1/n)."""
+    n = 512
+    _, x, tab, want = _jax_dif_case(n)
+    js, s = _rand(1, 131)
+    assert _same(plimbs.dif_transform(x, tab, scale=s[0]),
+                 _mul(want, jnp.broadcast_to(js, want.shape)))
 
 
 def test_dif_pass_stages():
@@ -342,23 +374,17 @@ def _host_cases():
     k, z, cp, cb = (_rand(ln, s)[1] for ln, s in
                     ((64, 67), (8, 68), (8, 69), (8, 70)))
     s1, s2, s3 = (_rand(1, s)[1][0] for s in (72, 73, 74))
+    ptab = torch.cat([fl.from_jax_limbs(ints_to_limbs([1])), tab[1:]])
     q = n // 4
     return {
-        "dif_stage": (plimbs.dif_stage_plain(x, tab, 2),
-                      [x, tab], [n, 2], (n, 8)),
-        "dif_pass": (plimbs.dif_transform_plain(x, tab),   # passes 3, 3, 2
-                     [x, tab], [n, 3], (n, 8), (n, 8)),
-        "dit_stage": (plimbs.dit_stage_plain(x, tab, 5),
-                      [x, tab], [n, 5], (n, 8)),
+        "dif_pass": (plimbs.dif_transform_plain(x, ptab),  # passes 3, 3, 2
+                     [x, ptab, None], [n, 3], (n, 8), (n, 8)),
         "dit_pass": (plimbs.dit_transform_plain(x, tab),  # passes 2, 3, 3
                      [x, tab], [n, 3, 0], (n, 8), (n, 8)),
-        "scale": (plimbs.scale_plain(x, s1), [x, s1], [n], (n, 8)),
+        "scale": (plimbs.scale_plain(x, s1), [x, s1, None], [n], (n, 8)),
         "db_map": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
                    [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
                    (n, 8), (n, 8)),
-        "db_map_v1": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
-                      [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
-                      (n, 8), (n, 8)),
         "l_map": (plimbs.l_map_plain(d, p, b, cp, cb),
                   [d, p, b, cp, 8, cb, 8], [n], (n, 8)),
         "fold4": (plimbs.fold4_plain(x[:q], tab, s1, s2, 4),  # round 2
@@ -394,17 +420,30 @@ def test_kernel_body_matches_plain(host_kernels, name):
 @pytest.mark.parametrize("n,k", DIF_PASSES)
 def test_host_ntt_dif_matches_stage_chain_and_jax(host_kernels, n, k):
     """The pass kernel's group and twiddle arithmetic (shared with the
-    CUDA build) over several passes, the last one short."""
-    g = pow(7, (M - 1) // n, M)
-    table = jfused._power_table_np(g, n)
-    jx, x = _rand(n, 130, edge=True)
-    tab = fl.from_jax_limbs(table)
-    out, _ = _host_call(host_kernels, "starks_ntt_dif", [x, tab], [n, k],
-                        [(n, 8), (n, 8)])
+    CUDA build) over several passes, the last one short, with no scale:
+    its last stage takes no twiddle product."""
+    _, x, tab, want = _jax_dif_case(n)
+    out, _ = _host_call(host_kernels, "starks_ntt_dif", [x, tab, None],
+                        [n, k], [(n, 8), (n, 8)])
     assert out.equal(plimbs.dif_transform_plain(x, tab))
-    want = jax.jit(jfused.ntt_dif)(jx, jnp.asarray(
-        jfused._stacked_twiddles(table)))
     assert _same(out, want)
+
+
+@pytest.mark.parametrize("n,k", DIF_PASSES)
+def test_host_ntt_dif_scaled_matches_stage_chain_and_jax(host_kernels, n,
+                                                         k):
+    """With a scale s, the last (short) pass multiplies both outputs of
+    its last stage by s: the plain stage chain times s, and JAX ntt_dif
+    followed by the XLA multiply, for edge values of s and 1/n."""
+    _, x, tab, want = _jax_dif_case(n)
+    for v in (1, M - 1, 2 ** 255, pow(n, M - 2, M)):
+        limbs = ints_to_limbs([v])
+        s = fl.from_jax_limbs(limbs)[0]
+        out, _ = _host_call(host_kernels, "starks_ntt_dif", [x, tab, s],
+                            [n, k], [(n, 8), (n, 8)])
+        assert out.equal(plimbs.dif_transform_plain(x, tab, s))
+        assert _same(out, _mul(want, jnp.broadcast_to(jnp.asarray(limbs),
+                                                      want.shape)))
 
 
 @pytest.mark.parametrize("wider", [0, 1])
@@ -439,8 +478,7 @@ def test_host_lde_compact_first_pass_matches_lde_fused(host_kernels, k):
     points: 3 + 3 + 3 and 3 + 6 stages (a first pass of copies only),
     4 + 5, and one pass of 9."""
     plan, trace, want = _jax_lde_case(64)
-    coeffs = plimbs.scale(fused.ntt_dif(trace, plan.inv_small),
-                          plan.n_inv_small)
+    coeffs = fused.ntt_dif(trace, plan.inv_small, scale=plan.n_inv_small)
     n = plan.xs_big.shape[0]
     out, _ = _host_call(host_kernels, "starks_ntt_dit",
                         [coeffs, plan.xs_big], [n, k, 3],
@@ -487,10 +525,10 @@ def test_host_mul_takes_any_value_below_2_256(host_kernels):
     assert out.equal(words([a * b % M for a, b in zip(va, vb)]))
 
 
-@pytest.mark.parametrize("entry", ["starks_db_map", "starks_db_map_v1"])
+@pytest.mark.parametrize("entry", ["starks_db_map"])
 def test_host_db_map_matches_plain_on_structured_values(host_kernels,
                                                         entry):
-    """The D/B map bodies as g++ builds them, with every array led by the
+    """The D/B map body as g++ builds it, with every array led by the
     structured values (chip_smoke.structured_ints) in shifted orders."""
     from chip_smoke import structured_ints
     from starks_tpu_torch.utils.conversions import ints_to_tensor
@@ -526,13 +564,35 @@ def test_host_mul_matches_plain_on_edge_pairs(host_kernels):
     assert got == [va[i] * vb[i] % M for i in range(0, n, 97)]
 
 
+@pytest.mark.parametrize("n", [1, 3, 257])
+@pytest.mark.parametrize("op", ["scale", "scale_acc", "cube"])
+def test_host_stream_map_matches_plain(host_kernels, op, n):
+    """scale (acc null and not) and cube, one kernel template, as g++
+    builds them, at sizes that fill no whole warp or block, with every
+    array led by the field's edge values."""
+    m = max(n, len(EDGE))
+    x, acc = (_rand(m, seed, edge=True)[1][:n] for seed in (170, 171))
+    s = fl.from_jax_limbs(ints_to_limbs([M - 1]))[0]
+    if op == "cube":
+        want, entry, ins = plimbs.cube_plain(x), "starks_cube", [x]
+    elif op == "scale":
+        want, entry, ins = plimbs.scale_plain(x, s), "starks_scale", [
+            x, s, None]
+    else:
+        want, entry, ins = plimbs.scale_plain(x, s, acc), "starks_scale", [
+            x, s, acc]
+    (out,) = _host_call(host_kernels, entry, ins, [n], [(n, 8)])
+    assert out.equal(want)
+
+
 # -- dispatch ---------------------------------------------------------------
 
 def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     plimbs.reset_launches()
     x = _rand(64, 80)[1]
     plimbs.scale(x, x[0])
-    plimbs.dif_stage(x, x, 0)
+    plimbs.scale(x, x[0], acc=x)
+    plimbs.dif_transform(x, x, scale=x[0])
     assert set(plimbs.LAUNCHES.values()) == {0}
 
 
@@ -547,9 +607,11 @@ def test_wrappers_raise_on_other_devices():
 def test_wrappers_reject_bad_arguments():
     x = _rand(64, 82)[1]
     with pytest.raises(ValueError):
-        plimbs.dif_stage(x, x, 6)                 # stages are 0..5
+        plimbs.dif_transform(x[:48], x)           # not a power of two
     with pytest.raises(ValueError):
-        plimbs.dit_stage(x[:48], x, 0)            # not a power of two
+        plimbs.dit_transform(x[:48], x)           # not a power of two
+    with pytest.raises(ValueError):
+        plimbs.scale(x, x[0], acc=x[:32])         # acc shape differs
     with pytest.raises(ValueError):
         plimbs.l_map(x, x, x, x[:0], x[:8])       # empty periodic table
     with pytest.raises(ValueError):
