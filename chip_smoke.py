@@ -76,6 +76,10 @@ BIG_STEPS = 2 ** 16
 AIR_CHECK_STEPS = 2 ** 10     # card against the CPU path
 AIR_CONSTS = CONSTS[:16]      # MiMC as an AIR: one 16-entry column
 EXT = 8
+CHECK_CLAIMS = 3              # the claim axis against one-claim launches
+TIMED_CLAIMS = 16             # the claim axis timed (the batch chunk)
+BATCH_CLAIMS = 64             # BASELINE.md config 5: 64 claims, 2^16 steps
+BATCH_CHUNK = 16
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
 # 32-bit integer multiply-adds at 64 per clock per SM (CUDA C++
@@ -122,11 +126,13 @@ FIB = f"fib-square {SMALL_STEPS}"
 FIB_BIG = f"fib-square {BIG_STEPS}"
 MIMC = f"MiMC {BIG_STEPS}"
 MIMC_AIR = f"MiMC-as-AIR {SMALL_STEPS}"
+BATCH = f"batch chunk of {BATCH_CHUNK} x MiMC {BIG_STEPS}"
 PATH_KERNELS = {
     MIMC: NTT_FRI + ["db_map", "l_map"],
     FIB_BIG: NTT_FRI + ["scale", "mul", "add", "sub"],
     FIB: NTT_FRI + ["scale", "mul", "add", "sub"],
     MIMC_AIR: NTT_FRI + ["scale", "mul", "add", "sub", "cube"],
+    BATCH: NTT_FRI + ["db_map", "l_map"],
 }
 
 
@@ -457,6 +463,104 @@ def phase_kernels(steps, device, plain_reps=3):
     return rows
 
 
+def claim_cases(claims, steps, device, seed):
+    """(name, wrapper, plain, args, claimed, warm) for each kernel of the
+    MiMC path over `claims` claims at the shapes a `steps`-step proof
+    gives it (the first case of `kernel_cases`), seeded: every per-claim
+    array and operand distinct (claim 0's arrays led by the structured
+    values), the shared tables once. `claimed` marks the arguments with
+    the claim axis."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    n_big = steps * EXT
+    edge = edge_elems(device)
+
+    def arr(n):
+        return rand_elems(n, gen, device)
+
+    def per_claim(n):
+        out = torch.stack([arr(n) for _ in range(claims)])
+        with_edges(out[0], edge)
+        return out
+
+    def per_claim_elem():
+        return torch.stack([arr(1)[0] for _ in range(claims)])
+
+    x, coeffs = per_claim(steps), per_claim(steps)
+    p, d, b, vals = (per_claim(n_big) for _ in range(4))
+    tw_small, tw_big = power_like(arr(steps)), arr(n_big)
+    xs, iz2, ip = arr(n_big), arr(n_big), arr(n_big // 4)
+    k_tab, zni = arr(EXT * len(CONSTS)), arr(EXT)
+    s, last, eta = arr(1)[0], arr(1)[0], arr(1)[0]
+    slope, ia, sx = per_claim_elem(), per_claim_elem(), per_claim_elem()
+    cp, cb = per_claim(EXT), per_claim(EXT)
+    from starks_tpu_torch.ops import plimbs
+    return [
+        ("dif_pass", plimbs.dif_transform,
+         lambda x, tw, k=None, sc=None: plimbs.dif_transform_plain(x, tw,
+                                                                   sc),
+         (x, tw_small, None, s), (1, 0, 0, 0), True),
+        ("dit_pass", plimbs.dit_transform,
+         lambda x, tw, k=None, ext=1: plimbs.dit_transform_plain(x, tw,
+                                                                  ext),
+         (coeffs, tw_big, None, EXT), (1, 0, 0, 0), True),
+        ("db_map", plimbs.db_map, plimbs.db_map_plain,
+         (p, xs, k_tab, zni, iz2, last, slope, ia, EXT),
+         (1, 0, 0, 0, 0, 0, 1, 1, 0), False),
+        ("l_map", plimbs.l_map, plimbs.l_map_plain, (d, p, b, cp, cb),
+         (1, 1, 1, 1, 1), False),
+        ("fold4", plimbs.fold4, plimbs.fold4_plain, (vals, ip, sx, eta, 0),
+         (1, 0, 1, 0, 0), True),
+    ]
+
+
+def claim_args(args, claimed, c):
+    """Claim c's arguments: its slice of every per-claim argument."""
+    return tuple(a[c] if cl else a for a, cl in zip(args, claimed))
+
+
+def as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def phase_claims(rows, device):
+    """Phase 2, continued: the claim axis of the five kernels of the MiMC
+    path. Each, over CHECK_CLAIMS claims in one launch, equals its plain
+    version (with the same claim axis) and its launches for one claim at
+    a time, exactly; then its device time per launch over TIMED_CLAIMS
+    claims, beside TIMED_CLAIMS times its one-claim bound. Adds
+    `claims16` to each kernel's row."""
+    import torch
+    for name, wrapper, plain, args, claimed, _ in claim_cases(
+            CHECK_CLAIMS, BIG_STEPS, device, SEED + 4):
+        got, want = as_tuple(wrapper(*args)), as_tuple(plain(*args))
+        singles = [as_tuple(wrapper(*claim_args(args, claimed, c)))
+                   for c in range(CHECK_CLAIMS)]
+        each = tuple(torch.stack(parts) for parts in zip(*singles))
+        check(all(torch.equal(g, w) and torch.equal(g, e)
+                  for g, w, e in zip(got, want, each)),
+              f"kernel {name} over {CHECK_CLAIMS} claims differs from its "
+              f"plain version or its one-claim launches")
+        print(f"  {name:<10s} over {CHECK_CLAIMS} claims in one launch "
+              f"equals its plain version and {CHECK_CLAIMS} one-claim "
+              f"launches", flush=True)
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=device).zero_
+    for name, wrapper, _, args, _, warm in claim_cases(
+            TIMED_CLAIMS, BIG_STEPS, device, SEED + 5):
+        dev, per_call = kernel_times(lambda: wrapper(*args), device,
+                                     None if warm else flush)
+        row = rows[name]
+        bound = TIMED_CLAIMS * row["bound_ms"]
+        row["claims16"] = {"claims": TIMED_CLAIMS, "ms": dev,
+                           "call_ms": per_call, "bound_ms": bound,
+                           "ms_per_claim": dev / TIMED_CLAIMS}
+        print(f"  {name:<10s} over {TIMED_CLAIMS} claims: device {dev:.6f} "
+              f"ms per launch ({dev / TIMED_CLAIMS:.6f} per claim; one "
+              f"claim {row['ms']:.6f}), per-call {per_call:.6f} ms, "
+              f"{TIMED_CLAIMS} x bound {bound:.6f} ms ({bound / dev:.1%})",
+              flush=True)
+
+
 def phase_dif_designs(device):
     """Phase 2, continued: the DIF transform, scaled and not, for each
     stages-per-pass width 4-10 at 2^13 and 2^16 points (each equal to
@@ -660,7 +764,8 @@ def print_launches(launches):
 
 
 def phase_small_proof(steps, device):
-    """Phase 3: byte equality with the spec oracle, and the verifier."""
+    """Phase 3: byte equality with the spec oracle, and the verifier.
+    Returns the oracle's proof."""
     from oracle import stark as ostark
     import starks_tpu_torch as stt
     t0 = time.perf_counter()
@@ -675,6 +780,7 @@ def phase_small_proof(steps, device):
     print(f"  {steps}-step proof equals the oracle's byte for byte "
           f"(port {t1 - t0:.3f} s incl. setup, oracle {t2 - t1:.3f} s); "
           f"verified", flush=True)
+    return want
 
 
 def phase_big_proof(steps, device):
@@ -794,10 +900,166 @@ def phase_air(device):
     return steady_s, launches
 
 
-def phase_profiles(device, mimc_steady_s, air_steady_s):
-    """Phase 6: one more proof of each timed kind under torch.profiler.
-    It runs after every stage-timed proof, so no timing follows a
-    profiler run."""
+class Spy:
+    """Within a `with` block, module.name counts its calls and sums their
+    wall time (seconds), and then calls the original."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls, self.seconds = 0, 0.0
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def spied(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+        setattr(self.module, self.name, spied)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def phase_batch(device, small_oracle):
+    """Phase 6: batch proving, BASELINE.md config 5 on one card. Returns the
+    steady wall time of one chunk and its launch counts.
+
+    `prove_batch` of BATCH_CLAIMS claims at 2^16 steps (inputs 0..63),
+    chunks of BATCH_CHUNK, verify=True: every claim through the bulk
+    claim-axis prover and none through the per-claim route, so all are
+    accepted as they came; claims 0 and 63 (first and last chunk) equal
+    the serial `mk_mimc_proof`; a resumed run loads all from the store;
+    a 2^13 batch claim equals the oracle; serialize -> deserialize
+    gives the proofs back; a flipped byte is rejected. Prints proofs/s
+    and wall time per chunk, proofs/s at chunk 1, 4 and 16 on one
+    chunk's claims, peak device memory, proof sizes and the host trace
+    time per claim (native and plain)."""
+    import tempfile
+    import torch
+    import starks_tpu_torch as stt
+    from starks_tpu_torch import prover
+    from starks_tpu_torch.models import mimc
+    from starks_tpu_torch.utils.artifacts import ProofStore
+    inps = list(range(BATCH_CLAIMS))
+    chunk_inps = inps[:BATCH_CHUNK]
+
+    def bulk(claims, chunk, steps=BIG_STEPS):
+        return stt.mk_mimc_proof_batch_fused(claims, steps, CONSTS,
+                                             chunk=chunk, device=device)
+
+    # One chunk alone, counted (its first call also warms the allocator
+    # and the pinned host buffers).
+    t0 = time.perf_counter()
+    _, launches = counted(lambda: bulk(chunk_inps, BATCH_CHUNK))
+    print(f"  one chunk of {BATCH_CHUNK} claims, counted alone (first "
+          f"call): {time.perf_counter() - t0:.3f} s", flush=True)
+    print_launches(launches)
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as root:
+        store = ProofStore(root)
+        with Spy(prover, "mk_mimc_proof_batch_fused") as bulk_spy, \
+                Spy(prover, "mk_mimc_proof_with_trace") as one_spy:
+            t0 = time.perf_counter()
+            proofs = stt.prove_batch(inps, BIG_STEPS, CONSTS, store=store,
+                                     verify=True, chunk=BATCH_CHUNK,
+                                     device=device)
+            total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        check(len(proofs) == BATCH_CLAIMS and bulk_spy.calls == 1
+              and one_spy.calls == 0,
+              f"prove_batch: {len(proofs)} proofs, {one_spy.calls} claims "
+              f"through the per-claim route")
+        chunks = -(-BATCH_CLAIMS // BATCH_CHUNK)
+        print(f"  prove_batch of {BATCH_CLAIMS} claims at {BIG_STEPS} steps, "
+              f"chunk {BATCH_CHUNK}, verify=True: all {BATCH_CLAIMS} "
+              f"accepted, none retried; bulk prover {bulk_spy.seconds:.3f} "
+              f"s = {BATCH_CLAIMS / bulk_spy.seconds:.4f} proofs/s, "
+              f"{bulk_spy.seconds / chunks:.3f} s per chunk of "
+              f"{BATCH_CHUNK} ({chunks} chunks, pipelined); with self-"
+              f"verification and the store {total_s:.3f} s = "
+              f"{BATCH_CLAIMS / total_s:.4f} proofs/s; peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB", flush=True)
+        with Spy(prover, "mk_mimc_proof_batch_fused") as bulk_spy:
+            t0 = time.perf_counter()
+            resumed = stt.prove_batch(inps, BIG_STEPS, CONSTS, store=store,
+                                      device=device)
+            resume_s = time.perf_counter() - t0
+        check(resumed == proofs and bulk_spy.calls == 0,
+              "a resumed prove_batch did not load every claim from the "
+              "store")
+        print(f"  resumed prove_batch loaded all {BATCH_CLAIMS} claims from "
+              f"the store in {resume_s:.3f} s, proving none", flush=True)
+
+    per_chunk = {}
+    for chunk in (BATCH_CHUNK, 4, 1):
+        t0 = time.perf_counter()
+        got = bulk(chunk_inps, chunk)
+        per_chunk[chunk] = time.perf_counter() - t0
+        check(got == proofs[:BATCH_CHUNK],
+              f"chunk {chunk} gives other proofs than chunk {BATCH_CHUNK}")
+    print(f"  {BATCH_CHUNK} claims at chunk 16 / 4 / 1: " + " / ".join(
+        f"{BATCH_CHUNK / per_chunk[c]:.4f}" for c in (BATCH_CHUNK, 4, 1))
+        + " proofs/s (" + " / ".join(f"{per_chunk[c]:.3f}" for c in
+                                     (BATCH_CHUNK, 4, 1)) + " s); equal "
+        "proofs", flush=True)
+
+    for c in (0, BATCH_CLAIMS - 1):
+        check(proofs[c] == stt.mk_mimc_proof(inps[c], BIG_STEPS, CONSTS,
+                                             device=device),
+              f"batch claim {c} differs from the serial proof")
+    small = bulk([INP, 1, 2], 2, SMALL_STEPS)
+    check(small[0] == small_oracle,
+          f"the {SMALL_STEPS}-step batch claim differs from the oracle's")
+    check(all(stt.verify_mimc_proof(x, SMALL_STEPS, CONSTS,
+                                    stt.mimc_forward(x, SMALL_STEPS, CONSTS),
+                                    q) for x, q in zip([INP, 1, 2], small)),
+          f"verifier rejected a {SMALL_STEPS}-step batch proof")
+    print(f"  claims 0 and {BATCH_CLAIMS - 1} (chunks 1 and {chunks}) equal "
+          f"the serial mk_mimc_proof byte for byte; a {SMALL_STEPS}-step "
+          f"batch claim (chunk 2 of 3 claims) equals the oracle's",
+          flush=True)
+
+    for q in (proofs[0], proofs[-1], small[0]):
+        check(stt.deserialize_proof(stt.serialize_proof(q)) == q,
+              "serialize -> deserialize did not give the proof back")
+    print(f"  serialize -> deserialize gives claims 0, {BATCH_CLAIMS - 1} and "
+          f"the {SMALL_STEPS}-step claim back; one {BIG_STEPS}-step proof: "
+          f"bin_length {stt.bin_length(proofs[0])} B, raw_length "
+          f"{stt.raw_length(proofs[0])} B", flush=True)
+    bad = copy.deepcopy(proofs[5])
+    leaf = bytearray(bad[2][0][0])
+    leaf[0] ^= 1
+    bad[2][0][0] = bytes(leaf)
+    expect_rejected(lambda q: stt.verify_mimc_proof(
+        5, BIG_STEPS, CONSTS, stt.mimc_forward(5, BIG_STEPS, CONSTS), q),
+        bad, "a flipped byte in batch claim 5")
+    print("  a flipped byte in batch claim 5 is rejected", flush=True)
+
+    reps = 5
+    t0 = time.perf_counter()
+    for x in range(reps):
+        mimc.trace_limbs(x, BIG_STEPS, CONSTS)
+    native_ms = (time.perf_counter() - t0) * 1e3 / reps
+    t0 = time.perf_counter()
+    mimc.trace_host(0, BIG_STEPS, CONSTS)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  host trace per claim at {BIG_STEPS} steps: native "
+          f"{native_ms:.3f} ms (mean of {reps}), plain bigints {plain_ms:.3f} "
+          f"ms (one)", flush=True)
+    return per_chunk[BATCH_CHUNK], launches
+
+
+def phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s):
+    """Phase 7: one more proof of each timed kind, and one batch chunk,
+    under torch.profiler. It runs after every timed proof, so no timing
+    follows a profiler run."""
     import starks_tpu_torch as stt
     from starks_tpu_torch.models import fib_square as fib
     print(f"  MiMC {BIG_STEPS} steps:", flush=True)
@@ -810,6 +1072,33 @@ def phase_profiles(device, mimc_steady_s, air_steady_s):
         profile_proof(lambda: stt.prove_air(air, [1, 1], steps,
                                             device=device),
                       device, steady)
+    print(f"  {BATCH}:", flush=True)
+
+    def chunk():
+        stt.mk_mimc_proof_batch_fused(list(range(BATCH_CHUNK)), BIG_STEPS,
+                                      CONSTS, chunk=BATCH_CHUNK, device=device)
+    profile_proof(chunk, device, chunk_steady_s)
+    for what, run in ((MIMC, lambda: stt.mk_mimc_proof(
+            INP, BIG_STEPS, CONSTS, device=device)), (BATCH, chunk)):
+        print(f"  {what}: {count_syncs(run, device)} calls that wait for "
+              f"the card (torch.cuda sync debug mode)", flush=True)
+
+
+def count_syncs(run, device) -> int:
+    """The calls in `run()` that make the host wait for the card (a
+    blocking copy, a stream synchronize), as torch's sync debug mode
+    reports them."""
+    import warnings
+    import torch
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 # The field kernels, as the profiler and cuobjdump name them (mangled
@@ -875,18 +1164,26 @@ def profile_proof(run, device, steady_s):
 
 
 def phase_launches(rows, launches):
-    """Phase 7: each path launched every kernel it runs, the NTTs only
+    """Phase 8: each path launched every kernel it runs, the NTTs only
     through the multi-stage passes (at most two per column: <= 3 DIF or
     DIT pass launches per MiMC 2^16 proof, one column, and <= 4 per
     fib-square 2^13 proof, two columns), and the MiMC path no scale (the
-    LDE's 1/n is in the DIF transform); prints the scale and add counts
-    of every path (the AIR sums take each scaled term with scale's
-    accumulator, so no add follows a scale); each kernel row gets the
-    count of its own main path and those of every path."""
+    LDE's 1/n is in the DIF transform); one batch chunk launches each
+    kernel exactly as often as one MiMC 2^16 proof (the claim axis, not
+    a loop over claims); prints the scale and add counts of every path
+    (the AIR sums take each scaled term with scale's accumulator, so no
+    add follows a scale); each kernel row gets the count of its own
+    main path and those of every path."""
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,
                   f"kernel {name} never ran on the {path} path")
+    for name, count in launches[MIMC].items():
+        check(launches[BATCH][name] == count,
+              f"{launches[BATCH][name]} {name} launches per {BATCH}, "
+              f"{count} per {MIMC} proof")
+    print(f"  {BATCH}: every kernel's launches equal one {MIMC} proof's",
+          flush=True)
     check(launches[MIMC]["scale"] == 0,
           f"{launches[MIMC]['scale']} scale launches on the {MIMC} path")
     for name in ("dif_pass", "dit_pass"):
@@ -926,12 +1223,13 @@ def main() -> int:
     print(f"phase 2: kernels against plain versions at {BIG_STEPS}-step "
           f"shapes", flush=True)
     rows = phase_kernels(BIG_STEPS, device)
+    phase_claims(rows, device)
     phase_dif_designs(device)
     phase_dit_designs(device)
     phase_stream_turns(device)
 
     print("phase 3: main path, small proof", flush=True)
-    phase_small_proof(SMALL_STEPS, device)
+    small_oracle = phase_small_proof(SMALL_STEPS, device)
     print("phase 4: main path, large proof", flush=True)
     mimc_steady_s, mimc_launches = phase_big_proof(BIG_STEPS, device)
 
@@ -939,10 +1237,14 @@ def main() -> int:
     air_steady_s, launches = phase_air(device)
     launches[MIMC] = mimc_launches
 
-    print("phase 6: profiled proofs", flush=True)
-    phase_profiles(device, mimc_steady_s, air_steady_s)
+    print(f"phase 6: batch proving ({BATCH_CLAIMS} x {BIG_STEPS} steps, "
+          f"chunk {BATCH_CHUNK}, verified)", flush=True)
+    chunk_steady_s, launches[BATCH] = phase_batch(device, small_oracle)
 
-    print("phase 7: launches on the main paths", flush=True)
+    print("phase 7: profiled proofs", flush=True)
+    phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s)
+
+    print("phase 8: launches on the main paths", flush=True)
     phase_launches(rows, launches)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -1,20 +1,34 @@
 """starks_tpu_torch: the STARK prover on PyTorch and CUDA (NVIDIA Hopper).
 
 A port of `starks_tpu` that imports neither JAX nor `starks_tpu`. It
-covers the single-device MiMC proof and general AIR proofs:
-`mk_mimc_proof` and `prove_air` run the hand-written CUDA kernels of
-csrc/ on the card (or their plain PyTorch versions with
-`device="cpu"`) and produce proofs byte-identical to the reference;
-`verify_mimc_proof` and `verify_air` check them on the host. The
+covers the single-device MiMC proof, batch proving and general AIR
+proofs: `mk_mimc_proof`, `mk_mimc_proof_batch_fused` (many claims over
+a claim axis) and `prove_air` run the hand-written CUDA kernels of
+csrc/ on the card (or their plain PyTorch versions with `device="cpu"`)
+and produce proofs byte-identical to the reference;
+`verify_mimc_proof` and `verify_air` check them on the host.
+`prove_batch` adds resume from a proof store (utils/artifacts.py),
+self-verification and retries through `mk_mimc_proof_with_trace`;
+`serialize_proof` and `deserialize_proof` are the wire format. The
 Fibonacci-square AIR is in `starks_tpu_torch.models.fib_square`.
 """
 
 from .config import StarkConfig, REFERENCE
-from .prover import mk_mimc_proof
+from .prover import (mk_mimc_proof, mk_mimc_proof_with_trace,
+                     mk_mimc_proof_batch_fused)
 from .verifier import verify_mimc_proof, VerificationError
 from .models.mimc import mimc_forward
 from .air import AIR, prove_air, verify_air
+from .parallel.batch import prove_batch, verify_batch
+# serialize / deserialize under other names, so that they do not shadow
+# the `serialize` submodule (as in the JAX package).
+from .serialize import (serialize as serialize_proof,
+                        deserialize as deserialize_proof, bin_length,
+                        raw_length)
 
-__all__ = ["StarkConfig", "REFERENCE", "mk_mimc_proof", "verify_mimc_proof",
-           "VerificationError", "mimc_forward", "AIR", "prove_air",
-           "verify_air"]
+__all__ = ["StarkConfig", "REFERENCE", "mk_mimc_proof",
+           "mk_mimc_proof_with_trace", "mk_mimc_proof_batch_fused",
+           "verify_mimc_proof", "VerificationError", "mimc_forward", "AIR",
+           "prove_air", "verify_air", "prove_batch", "verify_batch",
+           "serialize_proof", "deserialize_proof", "bin_length",
+           "raw_length"]

@@ -9,6 +9,16 @@
 // cube share one template (stream_map). Periodic tables are read as
 // tab[i % len]; a scalar is one element in device memory.
 //
+// The kernels of the MiMC path (the DIF and DIT passes, the D/B and L
+// maps, fold4) take a claim axis: `batch` proofs' arrays one after
+// another ([batch, n] elements), one launch for all of them, the claim
+// in blockIdx.y. Shared tables (twiddles, x, the periodic K and 1/Z
+// tables, eta, the u-table, scalars of the setup) are read by every
+// claim from the same pointer; per-claim operands (the boundary's
+// slope and ia, the L map's coefficient tables, fold4's sx) are
+// indexed by the claim. Claim offsets are 64-bit: batch * n * 32 bytes
+// passes 2^32 at 2^20 steps and 16 claims.
+//
 // Each kernel's bound (bytes or integer multiply-adds) is noted in
 // ops/plimbs.py; the simple form here is a first, correct version.
 //
@@ -18,6 +28,8 @@
 // nvcc the same file compiles as C++ with g++, and each entry point then
 // runs its loop on the host, so the kernel bodies can be tested on a
 // machine with no GPU.
+#include <cstddef>
+
 #include "field.cuh"
 
 using field::Fe;
@@ -28,6 +40,12 @@ using field::Fe;
 #define FOR_EACH(i, count)                                              \
   for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < (count); \
        i += gridDim.x * blockDim.x)
+// One claim per grid row: LAUNCH makes gridDim.y = batch, so a block
+// runs its claim once (no loop keeps claim state in registers).
+#define FOR_EACH_CLAIM(c, batch) \
+  if (const uint32_t c = blockIdx.y; c < (batch))
+// At least `blocks` blocks of kThreads resident per SM: caps registers.
+#define MIN_BLOCKS(blocks) __launch_bounds__(kThreads, blocks)
 namespace {
 constexpr uint32_t kThreads = 256;
 inline uint32_t grid_for(uint32_t count) {
@@ -35,22 +53,25 @@ inline uint32_t grid_for(uint32_t count) {
   return blocks < 65536u ? blocks : 65536u;
 }
 }  // namespace
-#define LAUNCH(kernel, count, stream, ...)                              \
-  do {                                                                  \
-    if (count)                                                          \
-      kernel<<<grid_for(count), kThreads, 0, (cudaStream_t)(stream)>>>( \
-          __VA_ARGS__);                                                 \
-    return (int)cudaGetLastError();                                     \
+// One grid row of blocks per claim (gridDim.y = batch <= 65535).
+#define LAUNCH(kernel, count, batch, stream, ...)                        \
+  do {                                                                   \
+    if ((count) && (batch))                                              \
+      kernel<<<dim3(grid_for(count), (batch)), kThreads, 0,              \
+               (cudaStream_t)(stream)>>>(__VA_ARGS__);                   \
+    return (int)cudaGetLastError();                                      \
   } while (0)
 #else
 #include <vector>
 #define KERNEL static void
 #define FOR_EACH(i, count) for (uint32_t i = 0; i < (count); ++i)
-#define LAUNCH(kernel, count, stream, ...) \
-  do {                                     \
-    (void)(stream);                        \
-    kernel(__VA_ARGS__);                   \
-    return 0;                              \
+#define FOR_EACH_CLAIM(c, batch) for (uint32_t c = 0; c < (batch); ++c)
+#define MIN_BLOCKS(blocks)
+#define LAUNCH(kernel, count, batch, stream, ...) \
+  do {                                            \
+    (void)(stream);                               \
+    kernel(__VA_ARGS__);                          \
+    return 0;                                     \
   } while (0)
 #endif
 
@@ -96,21 +117,23 @@ FIELD_FN void dif_last_butterfly(const Fe& a, const Fe& b, bool scaled,
 #ifdef __CUDACC__
 // One block per tile of 2^(k + log_c) elements: C = 2^log_c consecutive
 // groups (C > 1 only for a pass shorter than the transform's pass
-// width, so every pass has the same tile). One thread per butterfly;
-// the tile lives in shared memory from load to store. For each m the C
-// elements x[g0 + c + m * groups] are contiguous, so neighbouring
-// threads load neighbouring elements when C > 1, and whole 32-byte
-// sectors always; the store is one contiguous run of the tile. With
-// about two warps per scheduler at 2^16 points the stages are bound by
-// latency, so each twiddle is loaded a stage ahead, as two 16-byte
-// loads through the read-only cache. The pass that ends the transform
-// runs its last stage as dif_last_butterfly.
+// width, so every pass has the same tile), and one grid row per claim.
+// One thread per butterfly; the tile lives in shared memory from load
+// to store. For each m the C elements x[g0 + c + m * groups] are
+// contiguous, so neighbouring threads load neighbouring elements when
+// C > 1, and whole 32-byte sectors always; the store is one contiguous
+// run of the tile. With about two warps per scheduler at 2^16 points
+// the stages are bound by latency, so each twiddle is loaded a stage
+// ahead, as two 16-byte loads through the read-only cache. The pass
+// that ends the transform runs its last stage as dif_last_butterfly.
 __global__ void dif_pass_kernel(const Fe* __restrict__ x,
                                 const Fe* __restrict__ table,
                                 const Fe* __restrict__ scale,
                                 Fe* __restrict__ out, uint32_t log_n,
                                 uint32_t s, uint32_t k, uint32_t log_c) {
   extern __shared__ Fe loc[];  // loc[c << k | m]
+  x += (size_t)blockIdx.y << log_n;
+  out += (size_t)blockIdx.y << log_n;
   const uint32_t groups = 1u << (log_n - k);
   const uint32_t size = 1u << (k + log_c);
   const uint32_t g0 = blockIdx.x << log_c;
@@ -213,16 +236,16 @@ FIELD_FN void dit_butterfly(const Fe& a, const Fe& b, const Fe& w, Fe& u,
 #ifdef __CUDACC__
 // Blocks as in dif_pass_kernel: one per tile of 2^(k + log_c) elements
 // (C = 2^log_c groups when the pass is shorter than the transform's
-// width), BPT butterflies per thread and stage (two for a 2^10 tile, so
-// a block has at most 256 threads; the two are independent work for the
-// scheduler). The tile ping-pongs between two buffers in shared memory,
-// so each stage ends in one barrier and no result waits in registers
-// for it. The load is one contiguous run of the tile (for the compact
-// first pass, runs of 2^(k-log_ext) read ext times, from L2); the store
-// writes, for each m, C contiguous elements (a whole 32-byte sector each
-// when C = 1). Each twiddle is loaded a stage ahead. At most 80
-// registers a thread, so three blocks of 256 threads (and 64 KB of
-// shared memory each at k = 10) fit an SM.
+// width) and claim, BPT butterflies per thread and stage (two for a
+// 2^10 tile, so a block has at most 256 threads; the two are
+// independent work for the scheduler). The tile ping-pongs between two
+// buffers in shared memory, so each stage ends in one barrier and no
+// result waits in registers for it. The load is one contiguous run of
+// the tile (for the compact first pass, runs of 2^(k-log_ext) read ext
+// times, from L2); the store writes, for each m, C contiguous elements
+// (a whole 32-byte sector each when C = 1). Each twiddle is loaded a
+// stage ahead. At most 80 registers a thread, so three blocks of 256
+// threads (and 64 KB of shared memory each at k = 10) fit an SM.
 constexpr uint32_t kPassThreads = 256;
 
 // A tile of `size` elements in shared memory, as two planes of 16-byte
@@ -249,6 +272,8 @@ __global__ void __launch_bounds__(kPassThreads, 3)
                     Fe* __restrict__ out, uint32_t log_n, uint32_t s,
                     uint32_t k, uint32_t log_c, uint32_t log_ext) {
   extern __shared__ uint4 buf[];  // two tiles, element c << k | m each
+  x += (size_t)blockIdx.y << (log_n - log_ext);
+  out += (size_t)blockIdx.y << log_n;
   const uint32_t groups = 1u << (log_n - k);
   const uint32_t size = 1u << (k + log_c);
   const uint32_t g0 = blockIdx.x << log_c;
@@ -397,36 +422,57 @@ int stream_map(const Fe* x, const Fe* y, const Fe* s, Fe* out, uint32_t n,
 // bound by the rate of their integer instructions, about as many on
 // the multiply-add pipe as on the add pipe (chip_smoke.py prints the
 // SASS count).
-KERNEL db_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
-                 const Fe* __restrict__ k_tab, uint32_t k_mask,
-                 const Fe* __restrict__ zni_tab, uint32_t zni_mask,
-                 const Fe* __restrict__ iz2, const Fe* __restrict__ last,
-                 const Fe* __restrict__ slope, const Fe* __restrict__ ia,
-                 Fe* __restrict__ d_out, Fe* __restrict__ b_out, uint32_t n,
-                 uint32_t shift) {
-  const Fe last_v = *last, slope_v = *slope, ia_v = *ia;
-  FOR_EACH(i, n) {
-    const uint32_t ir = i + shift < n ? i + shift : i + shift - n;
-    const Fe pv = p[i], x = xs[i];
-    const Fe c = field::sub(field::sub(p[ir], field::cube(pv)),
-                            k_tab[i & k_mask]);
-    d_out[i] = field::mul(field::mul(c, field::sub(x, last_v)),
-                          zni_tab[i & zni_mask]);
-    const Fe i_ev = field::add(ia_v, field::mul(slope_v, x));
-    b_out[i] = field::mul(field::sub(pv, i_ev), iz2[i]);
+// P, D and B are per claim, slope and ia one element per claim; the
+// rest is shared. The claim's pointers take registers the parameters
+// did not: uncapped, the kernel needs 90 and runs two blocks an SM,
+// 10% slower than three.
+KERNEL MIN_BLOCKS(3)
+    db_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
+              const Fe* __restrict__ k_tab, uint32_t k_mask,
+              const Fe* __restrict__ zni_tab, uint32_t zni_mask,
+              const Fe* __restrict__ iz2, const Fe* __restrict__ last,
+              const Fe* __restrict__ slope, const Fe* __restrict__ ia,
+              Fe* __restrict__ d_out, Fe* __restrict__ b_out, uint32_t n,
+              uint32_t shift, uint32_t batch) {
+  FOR_EACH_CLAIM(cl, batch) {
+    const size_t o = (size_t)cl * n;
+    const Fe* __restrict__ pc = p + o;
+    Fe* __restrict__ dc = d_out + o;
+    Fe* __restrict__ bc = b_out + o;
+    const Fe last_v = *last, slope_v = slope[cl], ia_v = ia[cl];
+    FOR_EACH(i, n) {
+      const uint32_t ir = i + shift < n ? i + shift : i + shift - n;
+      const Fe pv = pc[i], x = xs[i];
+      const Fe c = field::sub(field::sub(pc[ir], field::cube(pv)),
+                              k_tab[i & k_mask]);
+      dc[i] = field::mul(field::mul(c, field::sub(x, last_v)),
+                         zni_tab[i & zni_mask]);
+      const Fe i_ev = field::add(ia_v, field::mul(slope_v, x));
+      bc[i] = field::mul(field::sub(pv, i_ev), iz2[i]);
+    }
   }
 }
 
 // A5: L = D + cp(x)*P + cb(x)*B with periodic coefficient tables
-// (replaces _l_kernel).
+// (replaces _l_kernel). Every operand is per claim: the tables are the
+// claim's Fiat-Shamir weights.
 KERNEL l_kernel(const Fe* __restrict__ d, const Fe* __restrict__ p,
                 const Fe* __restrict__ b, const Fe* __restrict__ cp,
                 uint32_t cp_len, const Fe* __restrict__ cb, uint32_t cb_len,
-                Fe* __restrict__ out, uint32_t n) {
-  FOR_EACH(i, n) {
-    const Fe t = field::add(field::mul(p[i], cp[i % cp_len]),
-                            field::mul(b[i], cb[i % cb_len]));
-    out[i] = field::add(d[i], t);
+                Fe* __restrict__ out, uint32_t n, uint32_t batch) {
+  FOR_EACH_CLAIM(cl, batch) {
+    const size_t o = (size_t)cl * n;
+    const Fe* __restrict__ dc = d + o;
+    const Fe* __restrict__ pc = p + o;
+    const Fe* __restrict__ bc = b + o;
+    const Fe* __restrict__ cpc = cp + (size_t)cl * cp_len;
+    const Fe* __restrict__ cbc = cb + (size_t)cl * cb_len;
+    Fe* __restrict__ oc = out + o;
+    FOR_EACH(i, n) {
+      const Fe t = field::add(field::mul(pc[i], cpc[i % cp_len]),
+                              field::mul(bc[i], cbc[i % cb_len]));
+      oc[i] = field::add(dc[i], t);
+    }
   }
 }
 
@@ -434,24 +480,29 @@ KERNEL l_kernel(const Fe* __restrict__ d, const Fe* __restrict__ p,
 // eta) of the four strided quarters y_j = values[j*q + i], Horner at
 // u = sx * ip[i << shift], divided by 4. Round r reads round 0's table
 // (g^-i, i < N/4) at stride 4^r (shift = 2r), so one table serves every
-// round. Five modmuls per output: the 1/4 is an exact division.
+// round. Five modmuls per output: the 1/4 is an exact division. The
+// values, the column and sx are per claim; ip and eta are shared.
 KERNEL fold4_kernel(const Fe* __restrict__ values, const Fe* __restrict__ ip,
                     const Fe* __restrict__ sx, const Fe* __restrict__ eta,
-                    Fe* __restrict__ out, uint32_t q, uint32_t shift) {
-  const Fe sx_v = *sx, eta_v = *eta;
-  FOR_EACH(i, q) {
-    const Fe y0 = values[i], y1 = values[q + i];
-    const Fe y2 = values[2 * q + i], y3 = values[3 * q + i];
-    const Fe e0 = field::add(y0, y2), d02 = field::sub(y0, y2);
-    const Fe e1 = field::add(y1, y3), d13 = field::sub(y1, y3);
-    const Fe a0 = field::add(e0, e1), a2 = field::sub(e0, e1);
-    const Fe h = field::mul(d13, eta_v);
-    const Fe a1 = field::sub(d02, h), a3 = field::add(d02, h);
-    const Fe u = field::mul(sx_v, ip[i << shift]);
-    Fe acc = field::add(field::mul(u, a3), a2);
-    acc = field::add(field::mul(u, acc), a1);
-    acc = field::add(field::mul(u, acc), a0);
-    out[i] = field::div4(acc);
+                    Fe* __restrict__ out, uint32_t q, uint32_t shift,
+                    uint32_t batch) {
+  FOR_EACH_CLAIM(cl, batch) {
+    const Fe* __restrict__ v = values + (size_t)cl * 4 * q;
+    Fe* __restrict__ oc = out + (size_t)cl * q;
+    const Fe sx_v = sx[cl], eta_v = *eta;
+    FOR_EACH(i, q) {
+      const Fe y0 = v[i], y1 = v[q + i], y2 = v[2 * q + i], y3 = v[3 * q + i];
+      const Fe e0 = field::add(y0, y2), d02 = field::sub(y0, y2);
+      const Fe e1 = field::add(y1, y3), d13 = field::sub(y1, y3);
+      const Fe a0 = field::add(e0, e1), a2 = field::sub(e0, e1);
+      const Fe h = field::mul(d13, eta_v);
+      const Fe a1 = field::sub(d02, h), a3 = field::add(d02, h);
+      const Fe u = field::mul(sx_v, ip[i << shift]);
+      Fe acc = field::add(field::mul(u, a3), a2);
+      acc = field::add(field::mul(u, acc), a1);
+      acc = field::add(field::mul(u, acc), a0);
+      oc[i] = field::div4(acc);
+    }
   }
 }
 
@@ -490,10 +541,11 @@ extern "C" {
 // in). table[0] must be 1. With s not null the outputs are multiplied
 // by *s in the last stage. The passes ping-pong between out and
 // scratch, so the last one writes out; x is only read, and scratch is
-// unused for one pass.
+// unused for one pass. x, out and scratch hold `batch` transforms of n
+// elements; the table and s are shared.
 int starks_ntt_dif(const void* x, const void* table, const void* s,
                    void* out, void* scratch, uint32_t n, uint32_t k,
-                   void* stream) {
+                   uint32_t batch, void* stream) {
   uint32_t log_n = 0;
   while ((1u << log_n) < n) ++log_n;
   const uint32_t passes = (log_n + k - 1) / k;
@@ -504,13 +556,16 @@ int starks_ntt_dif(const void* x, const void* table, const void* s,
 #ifdef __CUDACC__
     const uint32_t blocks = n >> k, threads = 1u << (k - 1);
     const size_t smem = sizeof(Fe) << k;
-    dif_pass_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        src, F(table), F(s), dst, log_n, t, kk, k - kk);
+    dif_pass_kernel<<<dim3(blocks, batch), threads, smem,
+                      (cudaStream_t)stream>>>(src, F(table), F(s), dst,
+                                              log_n, t, kk, k - kk);
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
 #else
     (void)stream;
-    dif_pass_host(src, F(table), F(s), dst, log_n, t, kk);
+    for (uint32_t c = 0; c < batch; ++c)
+      dif_pass_host(src + (size_t)c * n, F(table), F(s), dst + (size_t)c * n,
+                    log_n, t, kk);
 #endif
     src = dst;
   }
@@ -524,10 +579,12 @@ int starks_ntt_dif(const void* x, const void* table, const void* s,
 // x holds the n / 2^log_ext nonzero inputs (every 2^log_ext-th) and the
 // first pass, which must run at least log_ext stages, reads them
 // (dit_pass_kernel). Passes ping-pong between out and scratch, so the
-// last one writes out; scratch is unused for one pass.
+// last one writes out; scratch is unused for one pass. x holds `batch`
+// inputs of n / 2^log_ext elements, out and scratch `batch` transforms
+// of n; the table is shared.
 int starks_ntt_dit(const void* x, const void* table, void* out,
                    void* scratch, uint32_t n, uint32_t k,
-                   uint32_t log_ext, void* stream) {
+                   uint32_t log_ext, uint32_t batch, void* stream) {
   uint32_t log_n = 0;
   while ((1u << log_n) < n) ++log_n;
   const uint32_t passes = (log_n + k - 1) / k;
@@ -552,18 +609,21 @@ int starks_ntt_dit(const void* x, const void* table, void* out,
     if (opt_in) return opt_in;
     const uint32_t blocks = n >> k, butterflies = 1u << (k - 1);
     const size_t smem = (2 * sizeof(Fe)) << k;
+    const dim3 grid(blocks, batch);
     if (butterflies > kPassThreads)
-      dit_pass_kernel<2><<<blocks, butterflies / 2, smem,
+      dit_pass_kernel<2><<<grid, butterflies / 2, smem,
                            (cudaStream_t)stream>>>(src, F(table), dst, log_n,
                                                    s, kk, k - kk, le);
     else
-      dit_pass_kernel<1><<<blocks, butterflies, smem, (cudaStream_t)stream>>>(
+      dit_pass_kernel<1><<<grid, butterflies, smem, (cudaStream_t)stream>>>(
           src, F(table), dst, log_n, s, kk, k - kk, le);
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
 #else
     (void)stream;
-    dit_pass_host(src, F(table), dst, log_n, s, kk, le);
+    for (uint32_t c = 0; c < batch; ++c)
+      dit_pass_host(src + ((size_t)c << (log_n - le)), F(table),
+                    dst + ((size_t)c << log_n), log_n, s, kk, le);
 #endif
     src = dst;
     top = s;
@@ -578,44 +638,46 @@ int starks_scale(const void* x, const void* s, const void* acc, void* out,
              : stream_map<ScaleOp>(F(x), nullptr, F(s), W(out), n, stream);
 }
 
+// The D/B, L and fold4 maps over `batch` claims ([batch, n] arrays; the
+// per-claim operands as their kernels say).
 int starks_db_map(const void* p, const void* xs, const void* k_tab,
                   uint32_t k_len, const void* zni_tab, uint32_t zni_len,
                   const void* iz2, const void* last, const void* slope,
                   const void* ia, void* d_out, void* b_out, uint32_t n,
-                  uint32_t shift, void* stream) {
+                  uint32_t shift, uint32_t batch, void* stream) {
   if ((k_len & (k_len - 1)) || (zni_len & (zni_len - 1))) return -1;
-  LAUNCH(db_kernel, n, stream, F(p), F(xs), F(k_tab), k_len - 1,
+  LAUNCH(db_kernel, n, batch, stream, F(p), F(xs), F(k_tab), k_len - 1,
          F(zni_tab), zni_len - 1, F(iz2), F(last), F(slope), F(ia),
-         W(d_out), W(b_out), n, shift);
+         W(d_out), W(b_out), n, shift, batch);
 }
 
 int starks_l_map(const void* d, const void* p, const void* b, const void* cp,
                  uint32_t cp_len, const void* cb, uint32_t cb_len, void* out,
-                 uint32_t n, void* stream) {
-  LAUNCH(l_kernel, n, stream, F(d), F(p), F(b), F(cp), cp_len, F(cb), cb_len,
-         W(out), n);
+                 uint32_t n, uint32_t batch, void* stream) {
+  LAUNCH(l_kernel, n, batch, stream, F(d), F(p), F(b), F(cp), cp_len, F(cb),
+         cb_len, W(out), n, batch);
 }
 
 int starks_fold4(const void* values, const void* ip, const void* sx,
                  const void* eta, void* out, uint32_t q, uint32_t shift,
-                 void* stream) {
-  LAUNCH(fold4_kernel, q, stream, F(values), F(ip), F(sx), F(eta), W(out), q,
-         shift);
+                 uint32_t batch, void* stream) {
+  LAUNCH(fold4_kernel, q, batch, stream, F(values), F(ip), F(sx), F(eta),
+         W(out), q, shift, batch);
 }
 
 int starks_mul(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
                void* out, uint32_t n, void* stream) {
-  LAUNCH(mul_kernel, n, stream, F(a), a_len, F(b), b_len, W(out), n);
+  LAUNCH(mul_kernel, n, 1u, stream, F(a), a_len, F(b), b_len, W(out), n);
 }
 
 int starks_add(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
                void* out, uint32_t n, void* stream) {
-  LAUNCH(add_kernel, n, stream, F(a), a_len, F(b), b_len, W(out), n);
+  LAUNCH(add_kernel, n, 1u, stream, F(a), a_len, F(b), b_len, W(out), n);
 }
 
 int starks_sub(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
                void* out, uint32_t n, void* stream) {
-  LAUNCH(sub_kernel, n, stream, F(a), a_len, F(b), b_len, W(out), n);
+  LAUNCH(sub_kernel, n, 1u, stream, F(a), a_len, F(b), b_len, W(out), n);
 }
 
 int starks_cube(const void* a, void* out, uint32_t n, void* stream) {

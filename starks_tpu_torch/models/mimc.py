@@ -2,9 +2,12 @@
 
 The canonical single-register AIR instance (SURVEY §3.1 `starks/mimc.py`):
 steps-1 rounds of x <- x^3 + c[i mod len(c)] (mod p). The trace is
-sequential per proof, so it runs on host bigints and is uploaded whole
-(2 MB at 2^16 steps).
+sequential per proof, so it runs on the host, in the native runtime
+(`trace_limbs`; `trace_host` is its plain bigint version), and is
+uploaded whole (2 MB at 2^16 steps).
 """
+
+from ..utils import native
 
 MODULUS = 2**256 - 351 * 2**32 + 1
 
@@ -21,6 +24,13 @@ def trace_host(inp: int, steps: int, round_constants) -> list:
         trace.append((trace[-1] ** 3
                       + round_constants[i % len(round_constants)]) % MODULUS)
     return trace
+
+
+def trace_limbs(inp: int, steps: int, round_constants):
+    """The trace as a host [steps, 8] int32 array in the port's layout,
+    from the native runtime (utils/native.py), as the JAX package's
+    `trace_limbs` (starks_tpu/models/mimc.py:52) reads its trace."""
+    return native.mimc_trace(inp, steps, round_constants)
 
 
 def _air_step(state, consts):

@@ -15,6 +15,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("field.cuh", "kernels.cu")       # what the library is built from
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -24,13 +25,13 @@ _U = ctypes.c_uint32
 
 # C entry points of csrc/kernels.cu: argument types, stream last.
 SIGNATURES = {
-    "starks_ntt_dif": [_P, _P, _P, _P, _P, _U, _U, _P],
-    "starks_ntt_dit": [_P, _P, _P, _P, _U, _U, _U, _P],
+    "starks_ntt_dif": [_P, _P, _P, _P, _P, _U, _U, _U, _P],
+    "starks_ntt_dit": [_P, _P, _P, _P, _U, _U, _U, _U, _P],
     "starks_scale": [_P, _P, _P, _P, _U, _P],
     "starks_db_map": [_P, _P, _P, _U, _P, _U, _P, _P, _P, _P, _P, _P, _U,
-                      _U, _P],
-    "starks_l_map": [_P, _P, _P, _P, _U, _P, _U, _P, _U, _P],
-    "starks_fold4": [_P, _P, _P, _P, _P, _U, _U, _P],
+                      _U, _U, _P],
+    "starks_l_map": [_P, _P, _P, _P, _U, _P, _U, _P, _U, _U, _P],
+    "starks_fold4": [_P, _P, _P, _P, _P, _U, _U, _U, _P],
     "starks_mul": [_P, _U, _P, _U, _P, _U, _P],
     "starks_add": [_P, _U, _P, _U, _P, _U, _P],
     "starks_sub": [_P, _U, _P, _U, _P, _U, _P],
@@ -54,9 +55,9 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.iterdir()):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libstarks_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -22,6 +22,10 @@ exists at any size.
   reads round 0's u-table at stride 4^r), then the column tree, the
   query indices and the column and row bundles.
 
+`lde` and `fri_commit` take a leading claim axis (a [B, steps, 8] trace
+gives B LDEs, and B FRI proofs in one launch of each kernel per round),
+as the JAX batch prover's vmap does; the tables stay shared.
+
 Bit-identical to the JAX package (tests/test_torch_kernels.py).
 """
 
@@ -31,7 +35,8 @@ from . import merkle
 from . import plimbs
 from . import transcript_dev as td
 from . import blake2s as b2
-from ..utils.conversions import ints_to_tensor, int_to_tensor
+from ..utils import native
+from ..utils.conversions import int_to_tensor
 
 MODULUS = 2**256 - 351 * 2**32 + 1
 
@@ -45,8 +50,8 @@ def powers(g: int, n: int) -> list:
 
 
 def power_table(g: int, n: int, device=None) -> torch.Tensor:
-    """[n, 8] table g^0 .. g^(n-1)."""
-    return ints_to_tensor(powers(g, n), device)
+    """[n, 8] table g^0 .. g^(n-1), built by the native host runtime."""
+    return torch.from_numpy(native.power_table(g, n)).to(device)
 
 
 def _inverse_order(table: torch.Tensor) -> torch.Tensor:
@@ -90,12 +95,12 @@ def ntt_dit(x, table, ext: int = 1):
 
 
 def lde(trace, inv_small, n_inv_small, fwd_big):
-    """Low-degree extension of trace [steps, 8] onto the precision-point
-    domain of `fwd_big` (its plain power table). The coefficients are
-    the stride-ext nonzero inputs of the forward NTT, which reads them
-    compact (`ntt_dit`'s ext), so no zero-padded array is built; the 1/n
-    is applied in the inverse NTT's last stage."""
-    steps = trace.shape[0]
+    """Low-degree extension of trace [..., steps, 8] onto the
+    precision-point domain of `fwd_big` (its plain power table). The
+    coefficients are the stride-ext nonzero inputs of the forward NTT,
+    which reads them compact (`ntt_dit`'s ext), so no zero-padded array
+    is built; the 1/n is applied in the inverse NTT's last stage."""
+    steps = trace.shape[-2]
     coeffs = ntt_dif(trace, inv_small, scale=n_inv_small)
     return ntt_dit(coeffs, fwd_big, ext=fwd_big.shape[0] // steps)
 
@@ -115,9 +120,9 @@ def fri_commit(values, leaf, lvl1, levels, root, fri_inv_pows, schedule,
                eta, queries: int, exclude: int):
     """FRI commit and query phases, one round after another at true
     shapes. Round 0's row tree is the L tree (leaf, lvl1, levels, root);
-    `fri_inv_pows` is round 0's u-table. Returns (col_roots [R][8],
-    col_bundles [R][q, w_c], row_bundles [R][4q, w_r], final values
-    [n_final, 8])."""
+    `fri_inv_pows` is round 0's u-table. Returns (col_roots [R][..., 8],
+    col_bundles [R][..., q, w_c], row_bundles [R][..., 4q, w_r], final
+    values [..., n_final, 8]); the leading axes are the claims'."""
     col_roots, col_bundles, row_bundles = [], [], []
     for r, (_, q_r) in enumerate(schedule):
         sx = td.special_x_limbs(root)
@@ -128,8 +133,8 @@ def fri_commit(values, leaf, lvl1, levels, root, fri_inv_pows, schedule,
                                          exclude_multiples_of=exclude)
         col_bundles.append(merkle.tree_bundle(col_leaf, c_lvl1, c_levels,
                                               ys))
-        row_idx = (ys[:, None] + q_r * torch.arange(
-            4, device=ys.device)[None]).reshape(-1)
+        row_idx = (ys[..., None] + q_r * torch.arange(
+            4, device=ys.device)).reshape(*ys.shape[:-1], -1)
         row_bundles.append(merkle.tree_bundle(leaf, lvl1, levels, row_idx))
         col_roots.append(c_root)
         values, leaf, lvl1, levels, root = (column, col_leaf, c_lvl1,

@@ -6,6 +6,10 @@ Level k's hashes run as ONE batched blake2s call. Byte formats match
 SURVEY §A.4: leaves are the raw 32-byte big-endian values (or 96-byte
 P||D||B composites), unhashed; parent = blake2s(left || right);
 branches are [leaf, sibling leaf, digest siblings...] bottom-up.
+
+Every function also takes a leading claim axis: leaves [B, M, W] give B
+trees in the same batched blake2s calls, and bundles take per-claim
+indices [B, K].
 """
 
 import numpy as np
@@ -15,32 +19,44 @@ from . import blake2s as b2
 
 
 def tree_build(leaf_words):
-    """Tree over [M, W] int64 leaf words (W = 8 for 32-byte leaves, 24
-    for the 96-byte P||D||B leaves). Returns (lvl1 [M/2, 8], levels
-    [[M/4, 8], [M/8, 8], ..., [1, 8]], root [8]), every level at its
-    true size."""
-    m, w = leaf_words.shape
-    lvl1 = b2.blake2s_words(leaf_words.reshape(m // 2, 2 * w), 2 * w * 4)
+    """Tree over [..., M, W] int64 leaf words (W = 8 for 32-byte leaves,
+    24 for the 96-byte P||D||B leaves). Returns (lvl1 [..., M/2, 8],
+    levels [[..., M/4, 8], [..., M/8, 8], ..., [..., 1, 8]], root
+    [..., 8]), every level at its true size."""
+    *lead, m, w = leaf_words.shape
+    lvl1 = b2.blake2s_words(leaf_words.reshape(*lead, m // 2, 2 * w),
+                            2 * w * 4)
     levels = []
     cur = lvl1
-    while cur.shape[0] > 1:
-        cur = b2.blake2s_words(cur.reshape(cur.shape[0] // 2, 16), 64)
+    while cur.shape[-2] > 1:
+        cur = b2.blake2s_words(cur.reshape(*lead, cur.shape[-2] // 2, 16),
+                               64)
         levels.append(cur)
-    root = levels[-1][0] if levels else lvl1[0]
+    root = (levels[-1] if levels else lvl1)[..., 0, :]
     return lvl1, levels, root
 
 
+def _rows(table, idx):
+    """table[..., idx, :] per claim: table [M, W] with idx [K], or
+    table [B, M, W] with idx [B, K] (one flat gather at b * M + idx)."""
+    if table.dim() == 2:
+        return table[idx]
+    b, m, w = table.shape
+    base = torch.arange(0, b * m, m, device=idx.device)[:, None]
+    return table.reshape(b * m, w)[idx + base]
+
+
 def tree_bundle(leaf_words, lvl1, levels, idx):
-    """[K, 2W + 8*(log2(M)-1)] branch bundles for int64 indices `idx`:
-    leaf, sibling leaf, then the sibling digest at each level bottom-up
-    (the root omitted), gathered on device."""
-    parts = [leaf_words[idx], leaf_words[idx ^ 1]]
+    """[..., K, 2W + 8*(log2(M)-1)] branch bundles for int64 indices
+    `idx` [..., K]: leaf, sibling leaf, then the sibling digest at each
+    level bottom-up (the root omitted), gathered on device."""
+    parts = [_rows(leaf_words, idx), _rows(leaf_words, idx ^ 1)]
     node = idx >> 1
     if levels:
-        parts.append(lvl1[node ^ 1])
+        parts.append(_rows(lvl1, node ^ 1))
         node = node >> 1
     for level in levels[:-1]:
-        parts.append(level[node ^ 1])
+        parts.append(_rows(level, node ^ 1))
         node = node >> 1
     return torch.cat(parts, dim=-1)
 

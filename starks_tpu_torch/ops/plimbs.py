@@ -10,6 +10,13 @@ and is what the CPU tests hold against the JAX package. `LAUNCHES`
 counts each wrapper's kernel launches (`dif_transform` and
 `dit_transform` make one per pass).
 
+The five kernels of the MiMC proof (`dif_transform`, `dit_transform`,
+`db_map`, `l_map`, `fold4`) also take a claim axis, as the JAX batch
+prover's vmap of them does: arrays [B, n, 8], and per-claim operands
+with the same leading B, in one launch for all B claims (MAX_CLAIMS at
+most). Shared tables keep their unbatched shape. Their plain versions
+take the same leading axis by broadcasting.
+
 Bounds on the card (32-byte elements, n elements per array): bytes over
 3.35 TB/s against 32-bit integer multiply-adds over the card's peak
 rate, 148 per modmul (chip_smoke.py). Scale, the L map and the
@@ -34,6 +41,8 @@ LAUNCHES = dict.fromkeys(
 # Stages per DIF or DIT pass: at most DIF_PASS_MAX_STAGES (a tile of 2^k
 # elements in shared memory), spread evenly over the fewest passes.
 DIF_PASS_MAX_STAGES = 10
+# Claims per launch: the kernels put the claim in the grid's y dimension.
+MAX_CLAIMS = 65535
 
 
 def reset_launches():
@@ -88,6 +97,29 @@ def _check_size(n: int):
         raise ValueError(f"size {n} is not a power of two in [2, 2^31)")
 
 
+def _claims(x) -> int:
+    """Claims in a field array: B for [B, n, 8], 1 for [n, 8]."""
+    if x.dim() == 2:
+        return 1
+    if x.dim() != 3 or not 1 <= x.shape[0] <= MAX_CLAIMS:
+        raise ValueError(f"expected [n, 8] or [B, n, 8] with B <= "
+                         f"{MAX_CLAIMS}, got {tuple(x.shape)}")
+    return x.shape[0]
+
+
+def _check_per_claim(x, what: str, *operands, rows: bool = False):
+    """Per-claim operands of the array x: [8] each (or [L, 8] with
+    `rows`) when x is [n, 8]; with a leading B when x is [B, n, 8]."""
+    lead = tuple(x.shape[:-2])
+    for t in operands:
+        want = t.dim() == len(lead) + (2 if rows else 1)
+        if not want or tuple(t.shape[:len(lead)]) != lead or (
+                rows and t.shape[-2] == 0):
+            raise ValueError(f"{what} must be {'[L, 8]' if rows else '[8]'}"
+                             f" per claim, with the leading axes "
+                             f"{lead} of the array")
+
+
 def _check_tables(*tables):
     if any(t.dim() != 2 or t.shape[0] == 0 for t in tables):
         raise ValueError("periodic tables must be non-empty [L, 8]")
@@ -102,12 +134,23 @@ def _stage_twiddles(table, t: int, half: int):
 # -- A1: DIF stage ------------------------------------------------------
 
 def dif_stage_plain(x, table, t: int):
-    n = x.shape[0]
+    n = x.shape[-2]
     half = n // 2
-    a, b = L16(x[:half]), L16(x[half:])
+    a, b = L16(x[..., :half, :]), L16(x[..., half:, :])
     u = fl.add16(a, b)
     v = fl.mul16(fl.sub16(a, b), L16(_stage_twiddles(table, t, half)))
-    return fl.from_limbs16(torch.stack([u, v], dim=1).reshape(n, -1))
+    return fl.from_limbs16(torch.stack([u, v], dim=-2).reshape(
+        *x.shape[:-2], n, -1))
+
+
+def dif_last_stage_plain(x, scale=None):
+    """The transform's last stage as the kernel runs it
+    (`dif_last_butterfly`): u = a + b, v = a - b with no twiddle product
+    (table[0] of a power table is 1), times `scale` when given."""
+    half = x.shape[-2] // 2
+    a, b = x[..., :half, :], x[..., half:, :]
+    y = torch.stack([fl.add(a, b), fl.sub(a, b)], dim=-2).reshape(x.shape)
+    return y if scale is None else scale_plain(y, scale)
 
 
 # -- A1, redesigned: the DIF transform in passes of several stages ------
@@ -121,20 +164,27 @@ def dif_pass_stages(n: int) -> int:
 
 
 def dif_transform_plain(x, table, scale=None):
-    for t in range(x.shape[0].bit_length() - 1):
+    """`dif_stage_plain` for t = 0 .. log n - 2, then the last stage with
+    no twiddle product (`dif_last_stage_plain`), as the kernel runs it.
+    So the network is the transform of a power table (table[0] = 1), as
+    every caller passes; for another table it drops table[0] exactly as
+    the card does."""
+    for t in range(x.shape[-2].bit_length() - 2):
         x = dif_stage_plain(x, table, t)
-    return x if scale is None else scale_plain(x, scale)
+    return dif_last_stage_plain(x, scale)
 
 
 def dif_transform(x, table, k: int | None = None, scale=None):
-    """The whole Pease DIF network over x [n, 8] (natural order in,
-    bit-reversed out), the same as `dif_stage_plain` for t = 0 .. log n
-    - 1, in ceil(log n / k) launches of `dif_pass_kernel`, each running
-    up to k consecutive stages on tiles of 2^k elements in shared memory
-    (k defaults to `dif_pass_stages(n)`). `table` is the power table of
-    the transform's root, so table[0] = 1 and the last stage has no
-    twiddle product. With `scale` (an [8] element) every output is
-    multiplied by it, in the last stage: the LDE's 1/n costs no launch.
+    """The whole Pease DIF network over x [n, 8] or [B, n, 8] (natural
+    order in, bit-reversed out), the same as `dif_stage_plain` for
+    t = 0 .. log n - 1, in ceil(log n / k) launches of `dif_pass_kernel`
+    for all B claims, each running up to k consecutive stages on tiles
+    of 2^k elements in shared memory (k defaults to
+    `dif_pass_stages(n)`). `table` is the power table of the
+    transform's root, so table[0] = 1 and the last stage has no twiddle
+    product. With `scale` (an [8] element, shared by the claims) every
+    output is multiplied by it, in the last stage: the LDE's 1/n costs
+    no launch.
 
     Replaces the chain of `_dif_kernel` launches of `ntt_dif_pl`
     (starks_tpu/ops/plimbs.py:154 via `dif_stage_x`, :355), one per
@@ -142,7 +192,7 @@ def dif_transform(x, table, k: int | None = None, scale=None):
     via `scale_t`, :400). Bound: operations, log n stages of n/2
     butterflies (a modmul and two adds each), plus n/2 modmuls with
     `scale`; bytes 64n + 32 * n/2 per pass."""
-    n = x.shape[0]
+    n, batch = x.shape[-2], _claims(x)
     _check_size(n)
     if table.shape[0] < n // 2:
         raise ValueError("twiddle table shorter than n/2")
@@ -160,19 +210,20 @@ def dif_transform(x, table, k: int | None = None, scale=None):
     out = torch.empty_like(x)
     scratch = torch.empty_like(x) if passes > 1 else out
     _launch("dif_pass", x.device, x, table, scale, out, scratch, n, k,
-            entry="starks_ntt_dif", launches=passes)
+            batch, entry="starks_ntt_dif", launches=passes)
     return out
 
 
 # -- A3: DIT stage ------------------------------------------------------
 
 def dit_stage_plain(x, table, t: int):
-    n = x.shape[0]
+    n = x.shape[-2]
     half = n // 2
-    pairs = L16(x).reshape(half, 2, -1)
-    wb = fl.mul16(L16(_stage_twiddles(table, t, half)), pairs[:, 1])
-    return fl.from_limbs16(torch.cat([fl.add16(pairs[:, 0], wb),
-                                      fl.sub16(pairs[:, 0], wb)]))
+    pairs = L16(x).reshape(*x.shape[:-2], half, 2, -1)
+    a = pairs[..., 0, :]
+    wb = fl.mul16(L16(_stage_twiddles(table, t, half)), pairs[..., 1, :])
+    return fl.from_limbs16(torch.cat([fl.add16(a, wb), fl.sub16(a, wb)],
+                                     dim=-2))
 
 
 # -- A3, redesigned: the DIT transform in passes of several stages ------
@@ -182,29 +233,30 @@ def dit_transform_plain(x, table, ext: int = 1):
     inputs that are x at multiples of ext and zero elsewhere. Its first
     log2(ext) stages only copy (b is zero), so it starts from x tiled
     ext times."""
-    y = x.repeat(ext, 1) if ext > 1 else x
-    for t in range(y.shape[0].bit_length() - 2 - (ext.bit_length() - 1),
+    y = torch.cat([x] * ext, dim=-2) if ext > 1 else x
+    for t in range(y.shape[-2].bit_length() - 2 - (ext.bit_length() - 1),
                    -1, -1):
         y = dit_stage_plain(y, table, t)
     return y
 
 
 def dit_transform(x, table, k: int | None = None, ext: int = 1):
-    """The whole DIT network (bit-reversed in, natural out), the same as
-    `dit_stage_plain` for t = log n - 1 down to 0, in ceil(log n / k)
-    launches of `dit_pass_kernel`, each up to k stages on tiles of 2^k
-    elements in shared memory (k defaults to `dif_pass_stages(n)`; the
-    shorter pass comes first). With ext > 1, x [n / ext, 8] holds
-    the nonzero inputs, at multiples of ext (the LDE's zero-interleaved
-    coefficients): the first pass reads them and skips the log2(ext)
-    stages that only copy, so no zero-padded array is built.
+    """The whole DIT network (bit-reversed in, natural out) over x [n, 8]
+    or [B, n, 8], the same as `dit_stage_plain` for t = log n - 1 down
+    to 0, in ceil(log n / k) launches of `dit_pass_kernel` for all B
+    claims, each up to k stages on tiles of 2^k elements in shared
+    memory (k defaults to `dif_pass_stages(n)`; the shorter pass comes
+    first). With ext > 1, x [..., n / ext, 8] holds the nonzero inputs,
+    at multiples of ext (the LDE's zero-interleaved coefficients): the
+    first pass reads them and skips the log2(ext) stages that only
+    copy, so no zero-padded array is built.
 
     Replaces the chain of `_dit_kernel` launches (starks_tpu/ops/
     plimbs.py:161, via `dit_stage_t`, :381) that `ntt_dit_pl`
     (starks_tpu/ops/fused.py:286) makes, one per stage. Bound:
     operations, log n - log2(ext) stages of n/2 butterflies (a modmul,
     an add and a sub each); bytes 64n + 32 * n/2 per pass."""
-    n = x.shape[0] * ext
+    n, batch = x.shape[-2] * ext, _claims(x)
     _check_size(n)
     if ext & (ext - 1) or ext > n // 2:
         raise ValueError(f"ext {ext} is not a power of two below n")
@@ -223,10 +275,11 @@ def dit_transform(x, table, k: int | None = None, ext: int = 1):
                          f"inputs spread {ext} apart")
     if not _on_card(x, table):
         return dit_transform_plain(x, table, ext)
-    out = torch.empty((n, NUM_WORDS), dtype=torch.int32, device=x.device)
+    out = torch.empty((*x.shape[:-2], n, NUM_WORDS), dtype=torch.int32,
+                      device=x.device)
     scratch = torch.empty_like(out) if passes > 1 else out
     _launch("dit_pass", x.device, x, table, out, scratch, n, k, log_ext,
-            entry="starks_ntt_dit", launches=passes)
+            batch, entry="starks_ntt_dit", launches=passes)
     return out
 
 
@@ -261,15 +314,16 @@ def scale(x, s, acc=None):
 # -- A4: constraint / quotient / boundary map ---------------------------
 
 def db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
-    n = p.shape[0]
+    n = p.shape[-2]
     i = torch.arange(n, device=p.device)
     pl = L16(p)
     x = L16(xs)
-    c = fl.sub16(fl.sub16(L16(torch.roll(p, -shift, 0)), fl.cube16(pl)),
+    c = fl.sub16(fl.sub16(L16(torch.roll(p, -shift, -2)), fl.cube16(pl)),
                  L16(k_tab)[i % k_tab.shape[0]])
     d = fl.mul16(fl.mul16(c, fl.sub16(x, L16(last))),
                  L16(zni_tab)[i % zni_tab.shape[0]])
-    i_ev = fl.add16(L16(ia), fl.mul16(L16(slope), x))
+    i_ev = fl.add16(L16(ia)[..., None, :],
+                    fl.mul16(L16(slope)[..., None, :], x))
     b = fl.mul16(fl.sub16(pl, i_ev), L16(iz2))
     return fl.from_limbs16(d), fl.from_limbs16(b)
 
@@ -281,20 +335,22 @@ def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
     with P(g1 x) = p[(i + shift) % n], K and Znum^-1 periodic tables of
     power-of-two length (the MiMC setup's are ext * len(constants) and
     ext) read modulo it, and last, slope, ia scalars [8]. Returns (D, B).
+    With a claim axis, P is [B, n, 8] and slope and ia are [B, 8] (each
+    claim's boundary line); xs, the tables, 1/Z2 and last are shared.
 
     Replaces `_db_kernel` (starks_tpu/ops/plimbs.py:181, launched by
     `db_map_t`, :418). The kernel reads P(g1 x) by offset, so the rolled
     copy of P is never built, and the tables with a mask. Bound:
     operations, 6 modmuls per element (bytes 160n: P, x, 1/Z2 in; D, B
     out); P^2 is a dedicated square (`field::sqr`)."""
-    n = p.shape[0]
+    n, batch = p.shape[-2], _claims(p)
     _check_size(n)
     for t in (xs, iz2):
-        if t.shape[0] != n:
-            raise ValueError("P, xs and 1/Z2 must have equal length")
-    for t in (last, slope, ia):
-        if t.shape != (NUM_WORDS,):
-            raise ValueError("last, slope and ia must be [8] elements")
+        if t.shape != (n, NUM_WORDS):
+            raise ValueError("xs and 1/Z2 must be [n, 8], n the length of P")
+    if last.shape != (NUM_WORDS,):
+        raise ValueError("last must be one [8] element")
+    _check_per_claim(p, "slope and ia", slope, ia)
     if not 0 <= shift < n:
         raise ValueError("shift out of range")
     _check_tables(k_tab, zni_tab)
@@ -307,48 +363,51 @@ def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
                             shift)
     d, b = torch.empty_like(p), torch.empty_like(p)
     _launch("db_map", p.device, p, xs, k_tab, k_tab.shape[0], zni_tab,
-            zni_tab.shape[0], iz2, last, slope, ia, d, b, n, shift)
+            zni_tab.shape[0], iz2, last, slope, ia, d, b, n, shift, batch)
     return d, b
 
 
 # -- A5: linear combination ---------------------------------------------
 
 def l_map_plain(d, p, b, cp, cb):
-    i = torch.arange(d.shape[0], device=d.device)
-    t = fl.add16(fl.mul16(L16(p), L16(cp)[i % cp.shape[0]]),
-                 fl.mul16(L16(b), L16(cb)[i % cb.shape[0]]))
+    i = torch.arange(d.shape[-2], device=d.device)
+    t = fl.add16(fl.mul16(L16(p), L16(cp)[..., i % cp.shape[-2], :]),
+                 fl.mul16(L16(b), L16(cb)[..., i % cb.shape[-2], :]))
     return fl.from_limbs16(fl.add16(L16(d), t))
 
 
 def l_map(d, p, b, cp, cb):
-    """L = D + cp(x)*P + cb(x)*B with periodic coefficient tables cp, cb.
+    """L = D + cp(x)*P + cb(x)*B with periodic coefficient tables cp, cb
+    ([L, 8]; with a claim axis D, P, B are [B, n, 8] and cp, cb
+    [B, L, 8], each claim's Fiat-Shamir weights).
 
     Replaces `_l_kernel` (starks_tpu/ops/plimbs.py:203, launched by
     `l_map_t`, :451). Bound: bytes, 128n (D, P, B in; L out)."""
-    n = d.shape[0]
-    if p.shape[0] != n or b.shape[0] != n:
-        raise ValueError("D, P and B must have equal length")
-    _check_tables(cp, cb)
+    n, batch = d.shape[-2], _claims(d)
+    if p.shape != d.shape or b.shape != d.shape:
+        raise ValueError("D, P and B must have equal shapes")
+    _check_per_claim(d, "cp and cb", cp, cb, rows=True)
     if not _on_card(d, p, b, cp, cb):
         return l_map_plain(d, p, b, cp, cb)
     out = torch.empty_like(d)
-    _launch("l_map", d.device, d, p, b, cp, cp.shape[0], cb, cb.shape[0],
-            out, n)
+    _launch("l_map", d.device, d, p, b, cp, cp.shape[-2], cb, cb.shape[-2],
+            out, n, batch)
     return out
 
 
 # -- A6: FRI fold by 4 --------------------------------------------------
 
 def fold4_plain(values, ip, sx, eta, shift: int = 0):
-    q = values.shape[0] // 4
-    y0, y1, y2, y3 = L16(values).reshape(4, q, -1)
+    q = values.shape[-2] // 4
+    y0, y1, y2, y3 = L16(values).reshape(
+        *values.shape[:-2], 4, q, -1).unbind(-3)
     e0, d02 = fl.add16(y0, y2), fl.sub16(y0, y2)
     e1, d13 = fl.add16(y1, y3), fl.sub16(y1, y3)
     a0, a2 = fl.add16(e0, e1), fl.sub16(e0, e1)
     h = fl.mul16(d13, L16(eta))
     a1, a3 = fl.sub16(d02, h), fl.add16(d02, h)
     i = torch.arange(q, device=ip.device)
-    u = fl.mul16(L16(sx), L16(ip[i << shift]))
+    u = fl.mul16(L16(sx)[..., None, :], L16(ip[i << shift]))
     acc = fl.add16(fl.mul16(u, a3), a2)
     acc = fl.add16(fl.mul16(u, acc), a1)
     acc = fl.add16(fl.mul16(u, acc), a0)
@@ -360,26 +419,28 @@ def fold4(values, ip, sx, eta, shift: int = 0):
     y_j = values[j*q + i]: the 4-point DFT of (y0..y3) using eta, Horner
     at u = sx * ip[i << shift], divided by 4. ip holds g^-i of round 0's
     generator; round r reads it at stride 4^r (shift = 2r), where it
-    holds that round's g_r^-i.
+    holds that round's g_r^-i. With a claim axis, values are [B, n, 8]
+    and sx [B, 8] (each claim's column point); ip and eta are shared.
 
     Replaces `_fold4_kernel` (starks_tpu/ops/plimbs.py:212, launched by
     `fold4_t`, :483 and :472), which multiplies by 1/4 at the end; here
     that is an exact division (`limbs.div4_16`), the same canonical
     value. The four quarters are read by offset. Bound: operations, 5
     modmuls per output (bytes 48n: values and ip in; the column out)."""
-    n = values.shape[0]
+    n, batch = values.shape[-2], _claims(values)
     _check_size(n)
     q = n // 4
     if n < 4 or not 0 <= shift < 31 or ip.shape[0] <= (q - 1) << shift:
         raise ValueError("fold4 needs n >= 4 and ip[(q - 1) << shift]")
-    for t in (sx, eta):
-        if t.shape != (NUM_WORDS,):
-            raise ValueError("sx and eta must be [8] elements")
+    if eta.shape != (NUM_WORDS,):
+        raise ValueError("eta must be one [8] element")
+    _check_per_claim(values, "sx", sx)
     if not _on_card(values, ip, sx, eta):
         return fold4_plain(values, ip, sx, eta, shift)
-    out = torch.empty((q, NUM_WORDS), dtype=torch.int32,
+    out = torch.empty((*values.shape[:-2], q, NUM_WORDS), dtype=torch.int32,
                       device=values.device)
-    _launch("fold4", values.device, values, ip, sx, eta, out, q, shift)
+    _launch("fold4", values.device, values, ip, sx, eta, out, q, shift,
+            batch)
     return out
 
 

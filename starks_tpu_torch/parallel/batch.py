@@ -1,0 +1,145 @@
+"""Batch proving: many independent MiMC claims (the port of
+`starks_tpu/parallel/batch.py`; BASELINE.md config 5).
+
+Proofs are independent, so data parallelism is at the process level:
+under `torch.distributed`, each process proves the contiguous slice of
+the batch its rank owns (`local_slice`), and only proof bytes leave it.
+Within a process, chunks of claims run through the claim-axis prover
+(`prover.mk_mimc_proof_batch_fused`: one pass of the kernels per chunk,
+chunk i+1 queued before chunk i is assembled on the host), with resume
+from a proof store, self-verification and per-claim retries.
+"""
+
+import logging
+
+import torch
+
+from .. import prover
+from .. import verifier
+from ..models import mimc as mimc_model
+from ..utils.artifacts import claim_key
+
+log = logging.getLogger(__name__)
+
+
+def local_slice(n_items: int, process_index: int = None,
+                process_count: int = None):
+    """Contiguous slice of a batch owned by this process: its rank and
+    the world size from `torch.distributed` when a process group is
+    initialized, else 0 and 1; the arguments override both."""
+    dist = torch.distributed
+    grouped = dist.is_available() and dist.is_initialized()
+    pi = process_index if process_index is not None else (
+        dist.get_rank() if grouped else 0)
+    pc = process_count if process_count is not None else (
+        dist.get_world_size() if grouped else 1)
+    per = (n_items + pc - 1) // pc
+    return slice(pi * per, min(n_items, (pi + 1) * per))
+
+
+def prove_batch(inputs, steps: int, round_constants, mesh=None,
+                store=None, max_retries: int = 1, verify: bool = False,
+                chunk: int = None, device=None):
+    """Prove a batch of MiMC claims; returns the proof objects of this
+    process's slice of the batch (all of it in a single process).
+
+    Claims already in `store` (a utils.artifacts.ProofStore) are loaded
+    (resume). The rest run through the claim-axis bulk prover in chunks
+    of `chunk`. Every claim then passes the same check, retry and store
+    steps: with `verify=True` each candidate proof must pass the
+    verifier, and a claim whose bulk proof is missing (the bulk prover
+    raised; the failure is logged, never swallowed) or rejected is
+    proved alone through `prover.mk_mimc_proof_with_trace`, with up to
+    `max_retries` more attempts (proofs are deterministic, so recovery
+    is a re-run). `device` as in `prover.mk_mimc_proof`; `mesh` (the
+    sharded prover) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError("the sharded (mesh) path is not ported")
+    local_inputs = list(inputs)[local_slice(len(inputs))]
+    if not local_inputs:
+        return []
+
+    def check_one(inp, proof):
+        if not verify:
+            return True
+        output = mimc_model.mimc_forward(inp, steps, round_constants)
+        try:
+            return verifier.verify_mimc_proof(inp, steps, round_constants,
+                                              output, proof)
+        except Exception:
+            # A proof the verifier cannot even parse is a failed
+            # attempt, eligible for a retry, not the end of the batch.
+            return False
+
+    def keep(i, proof):
+        results[i] = proof
+        if store is not None:
+            store.put_proof(keys[i], proof, {"inp": local_inputs[i],
+                                             "steps": steps})
+
+    # Resume: a stored entry must still pass requested self-checks.
+    keys = [None] * len(local_inputs)
+    results = {}
+    if store is not None:
+        for i, inp in enumerate(local_inputs):
+            keys[i] = claim_key(inp, steps, round_constants)
+            if store.has_proof(keys[i]):
+                stored = store.get_proof(keys[i])
+                if check_one(inp, stored):
+                    results[i] = stored
+    pending = [i for i in range(len(local_inputs)) if i not in results]
+
+    # Bulk path: traces come from the native runtime one chunk at a
+    # time inside the bulk prover (the whole batch's traces would be
+    # gigabytes of host memory at 2^20 steps).
+    if len(pending) > 1:
+        try:
+            got = prover.mk_mimc_proof_batch_fused(
+                [local_inputs[i] for i in pending], steps, round_constants,
+                chunk=chunk, device=device)
+        except Exception:
+            log.exception("bulk batch prover failed for %d claims; "
+                          "proving them one by one", len(pending))
+            got = [None] * len(pending)
+        for i, cand in zip(pending, got):
+            if cand is not None and check_one(local_inputs[i], cand):
+                keep(i, cand)
+        pending = [i for i in pending if i not in results]
+
+    # Per-claim path: the first attempt and the retries go through the
+    # same entry point (mk_mimc_proof_with_trace).
+    for i in pending:
+        inp = local_inputs[i]
+        trace = mimc_model.trace_limbs(inp, steps, round_constants)
+        proof, last_err = None, None
+        for _ in range(max_retries + 1):
+            try:
+                cand = prover.mk_mimc_proof_with_trace(
+                    inp, steps, round_constants, trace, device=device)
+            except Exception as e:           # a transient device fault
+                last_err = e
+                continue
+            if check_one(inp, cand):
+                proof = cand
+                break
+            last_err = AssertionError("proof failed self-verification")
+        if proof is None:
+            raise RuntimeError(
+                f"claim {i} (inp={inp}) failed after {max_retries + 1} "
+                f"attempts") from last_err
+        keep(i, proof)
+
+    return [results[i] for i in range(len(local_inputs))]
+
+
+def verify_batch(inputs, steps: int, round_constants, outputs, proofs):
+    """Verify this process's slice; returns a list of bools."""
+    out = []
+    for inp, output, proof in zip(inputs, outputs, proofs):
+        try:
+            out.append(verifier.verify_mimc_proof(inp, steps,
+                                                  round_constants, output,
+                                                  proof))
+        except AssertionError:
+            out.append(False)
+    return out

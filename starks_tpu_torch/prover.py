@@ -1,21 +1,27 @@
 """MiMC STARK prover on PyTorch and CUDA.
 
-Port of the single-device path of `starks_tpu/prover.py`
-(`mk_mimc_proof` -> `_prove_from_trace_fused` -> `post_trace_pl`). The
-pipeline is identical in math and transcript bytes (SURVEY.md §4.1):
+Port of the single-device paths of `starks_tpu/prover.py`
+(`mk_mimc_proof` -> `_prove_from_trace_fused` -> `post_trace_pl`, and
+the batch prover `mk_mimc_proof_batch_fused`, which vmaps that core over
+a claim axis). The pipeline is identical in math and transcript bytes
+(SURVEY.md §4.1):
 
-  host trace -> LDE (DIF kernel, 1/n in its last stage; DIT kernel)
-  -> D/B map kernel -> commit P||D||B -> Fiat-Shamir weights -> L map
-  kernel -> commit L ->
-  spot-check bundles -> FRI (fold4 kernel per round) ->
-  one device-to-host copy -> host byte assembly.
+  host trace (native runtime) -> LDE (DIF kernel, 1/n in its last
+  stage; DIT kernel) -> D/B map kernel -> commit P||D||B -> Fiat-Shamir
+  weights -> L map kernel -> commit L -> spot-check bundles -> FRI
+  (fold4 kernel per round) -> one device-to-host copy -> host byte
+  assembly.
 
-Challenges, query indices and branch bundles are derived on the device
-(ops/transcript_dev.py, ops/merkle.py), so nothing waits on the host
-until the final copy. Proofs equal `oracle.stark.mk_mimc_proof` byte for
-byte (tests/test_torch_prover.py).
+Every device step runs over a claim axis: B proofs take one launch of
+each kernel and each blake2s tensor op, and a single proof is the
+B = 1 case of the same code. Challenges, query indices and branch
+bundles are derived on the device (ops/transcript_dev.py,
+ops/merkle.py), so nothing waits on the host until the final copy.
+Proofs equal `oracle.stark.mk_mimc_proof` byte for byte
+(tests/test_torch_prover.py, tests/test_torch_batch.py).
 """
 
+import math
 import time
 
 import numpy as np
@@ -32,6 +38,10 @@ from .transcript import is_a_power_of_2
 from .utils import hostfield as hf
 from .utils.conversions import (NUM_WORDS, digest_words_to_bytes,
                                 int_to_tensor, ints_to_tensor)
+
+# Claims per device pass of the batch prover: bounds the memory in
+# flight (two chunks), as the JAX batch prover's default does.
+DEFAULT_CHUNK = 16
 
 MODULUS = REFERENCE.modulus
 
@@ -125,10 +135,12 @@ class _FusedSetup:
         return self._kext[key]
 
 
-def _prove_sections(su: _FusedSetup, trace, k_ext, inp: int, output: int,
+def _prove_sections(su: _FusedSetup, trace, k_ext, inps, outputs,
                     timer: _StageTimer):
-    """The device part of a proof (post_trace_pl without pruning):
-    returns the named sections, as int64 word tensors on the device."""
+    """The device part of B proofs (post_trace_pl without pruning, over
+    a claim axis): `trace` [B, steps, 8] on the device, `inps` and
+    `outputs` B ints. Returns the named sections, each an int64 word
+    tensor [B, ...] on the device."""
     plan = su.plan
     ext = su.ext
 
@@ -136,13 +148,14 @@ def _prove_sections(su: _FusedSetup, trace, k_ext, inp: int, output: int,
     p = fused.lde(trace, plan.inv_small, plan.n_inv_small, plan.xs_big)
     timer.mark("lde")
 
-    # 5-7. Constraint, quotient and boundary as one kernel. The boundary
-    # interpolant through (1, inp), (last, output) is built on the host.
-    slope = (output - inp) * su.islope % MODULUS
-    ia = (inp - slope) % MODULUS
+    # 5-7. Constraint, quotient and boundary as one kernel. Each claim's
+    # boundary interpolant through (1, inp), (last, output) is built on
+    # the host.
+    slopes = [(o - i) * su.islope % MODULUS for i, o in zip(inps, outputs)]
+    ias = [(i - s) % MODULUS for i, s in zip(inps, slopes)]
     d, b = plimbs.db_map(p, plan.xs_big, k_ext, su.zni8, su.inv_z2,
-                         su.last_l, int_to_tensor(slope, su.device),
-                         int_to_tensor(ia, su.device), ext)
+                         su.last_l, _upload(ints_to_tensor(slopes), su.device),
+                         _upload(ints_to_tensor(ias), su.device), ext)
     timer.mark("constraints/quotient/boundary")
 
     # 8. Commit #1: 96-byte P||D||B leaves.
@@ -164,8 +177,9 @@ def _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
                     timer: _StageTimer):
     """Steps 10-12, shared by the MiMC and the AIR proof: commit L, the
     spot-check bundles (main tree at x and g1 x, L tree at x), and FRI on
-    L. `su` is either proof's setup. Returns the named sections, as int64
-    word tensors on the device."""
+    L. `su` is either proof's setup; the arrays may carry a leading
+    claim axis. Returns the named sections, as int64 word tensors on the
+    device."""
     cfg, precision, ext = su.config, su.precision, su.ext
 
     # 10. Commit #2.
@@ -177,7 +191,7 @@ def _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
     positions = td.pseudorandom_indices_dev(
         l_root, precision, cfg.spot_checks, exclude_multiples_of=ext)
     aug = torch.stack([positions, (positions + ext) % precision],
-                      dim=1).reshape(-1)
+                      dim=-1).reshape(*positions.shape[:-1], -1)
     main_bundle = merkle.tree_bundle(m_leaf, m_lvl1, m_levels, aug)
     lc_bundle = merkle.tree_bundle(l_leaf, l_lvl1, l_levels, positions)
     timer.mark("spot-check bundles")
@@ -197,15 +211,29 @@ def _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
     return sections
 
 
-def _fetch(sections):
-    """ONE device-to-host copy of all sections -> {name: uint32 array}."""
-    flat = torch.cat([t.reshape(-1) for _, t in sections]).cpu().numpy()
-    flat = flat.astype(np.uint32)
-    out, off = {}, 0
-    for name, t in sections:
-        out[name] = flat[off:off + t.numel()].reshape(tuple(t.shape))
-        off += t.numel()
-    return out
+def _upload(host, device):
+    """A host tensor on `device`. To the card it goes through pinned
+    memory and is copied on the stream, so the host does not wait for
+    the work queued before it."""
+    if device.type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _start_fetch(sections):
+    """Queue ONE device-to-host copy of B claims' sections ([B, ...]
+    each): on the card into pinned memory behind an event, so the host
+    can queue more work before it waits. Returns the pending fetch."""
+    claims = sections[0][1].shape[0]
+    flat = torch.cat([t.reshape(claims, -1) for _, t in sections], dim=1)
+    layout = [(name, tuple(t.shape[1:])) for name, t in sections]
+    if flat.device.type != "cuda":
+        return flat, None, layout
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done, layout
 
 
 def _prep_section(name: str, arr: np.ndarray, main_leaf_words: int):
@@ -232,18 +260,83 @@ def _assemble_prepped(pre: dict, rounds: int):
             pre["lc_bundle"], fri_proof]
 
 
-def _finish_proof(sections, main_leaf_words: int, rounds: int,
+def _finish_fetch(fetch, main_leaf_words: int, rounds: int,
                   timer: _StageTimer):
-    """One device-to-host copy of the sections, then the host assembly
-    of the reference-shaped proof."""
-    fetched = _fetch(sections)
+    """Wait for a fetch, then assemble each claim's proof on the host,
+    in claim order."""
+    host, done, layout = fetch
+    if done is not None:
+        done.synchronize()
+    flat = host.numpy().astype(np.uint32)
     timer.mark("proof transfer")
-    pre = {name: _prep_section(name, arr, main_leaf_words)
-           for name, arr in fetched.items()}
-    proof = _assemble_prepped(pre, rounds)
+    proofs = []
+    for row in flat:
+        pre, off = {}, 0
+        for name, shape in layout:
+            size = math.prod(shape)
+            pre[name] = _prep_section(name, row[off:off + size].reshape(shape),
+                                      main_leaf_words)
+            off += size
+        proofs.append(_assemble_prepped(pre, rounds))
     timer.mark("proof assembly")
     timer.finish()
-    return proof
+    return proofs
+
+
+def _finish_proof(sections, main_leaf_words: int, rounds: int,
+                  timer: _StageTimer):
+    """One device-to-host copy of one proof's sections (no claim axis),
+    then the host assembly of the reference-shaped proof."""
+    fetch = _start_fetch([(name, t[None]) for name, t in sections])
+    return _finish_fetch(fetch, main_leaf_words, rounds, timer)[0]
+
+
+def _check_claim(steps: int, round_constants, config: StarkConfig):
+    assert steps <= 2**32 // config.extension_factor
+    assert is_a_power_of_2(steps) and is_a_power_of_2(len(round_constants))
+    assert len(round_constants) < steps
+
+
+def _trace_array(trace, steps: int) -> np.ndarray:
+    """A trace as a host [steps, 8] int32 array: from a list of ints
+    (reduced mod p), or an array or tensor in the port's layout."""
+    if isinstance(trace, (list, tuple)):
+        trace = ints_to_tensor([x % MODULUS for x in trace])
+    if isinstance(trace, torch.Tensor):
+        trace = trace.detach().cpu().numpy()
+    trace = np.ascontiguousarray(trace, dtype=np.int32)
+    if trace.shape != (steps, NUM_WORDS):
+        raise ValueError(f"trace of shape {trace.shape}, expected "
+                         f"({steps}, {NUM_WORDS})")
+    return trace
+
+
+def _prove_chunk(su: _FusedSetup, k_ext, inps, traces, timer: _StageTimer):
+    """Queue the proofs of one chunk of claims (`inps`, reduced, and
+    their host traces as [steps, 8] int32 arrays) and their one
+    device-to-host copy; returns the pending fetch."""
+    trace = _upload(torch.from_numpy(np.stack(traces)), su.device)
+    outputs = [int.from_bytes(t[-1].tobytes(), "little") for t in traces]
+    timer.mark("setup + trace upload")
+    sections = _prove_sections(su, trace, k_ext, inps, outputs, timer)
+    return _start_fetch(sections)
+
+
+def _prove_one(inp: int, steps: int, round_constants, make_trace, mesh,
+               config: StarkConfig, device, timings):
+    """One proof, the B = 1 case of the claim-axis prover, from the host
+    trace `make_trace()` returns."""
+    if mesh is not None:
+        raise NotImplementedError("the sharded (mesh) path is not ported")
+    device = _resolve_device(device)
+    _check_claim(steps, round_constants, config)
+    timer = _StageTimer(timings, device)
+    trace = make_trace()
+    timer.mark("host trace")
+    su = _FusedSetup.get(steps, config, device)
+    fetch = _prove_chunk(su, su.k_ext(round_constants), [inp % MODULUS],
+                         [trace], timer)
+    return _finish_fetch(fetch, 3 * NUM_WORDS, len(su.schedule), timer)[0]
 
 
 def mk_mimc_proof(inp: int, steps: int, round_constants, mesh=None,
@@ -257,21 +350,68 @@ def mk_mimc_proof(inp: int, steps: int, round_constants, mesh=None,
     runs the plain PyTorch versions of the kernels. Pass a dict as
     `timings` to receive per-stage seconds (each stage waits for the
     device). `mesh` (the sharded path) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded (mesh) path is not ported")
-    device = _resolve_device(device)
-    assert steps <= 2**32 // config.extension_factor
-    assert is_a_power_of_2(steps) and is_a_power_of_2(len(round_constants))
-    assert len(round_constants) < steps
+    return _prove_one(
+        inp, steps, round_constants,
+        lambda: mimc_model.trace_limbs(inp, steps, round_constants), mesh,
+        config, device, timings)
 
-    timer = _StageTimer(timings, device)
-    inp = inp % MODULUS
-    trace_ints = mimc_model.trace_host(inp, steps, round_constants)
-    timer.mark("host trace")
+
+def mk_mimc_proof_with_trace(inp: int, steps: int, round_constants, trace,
+                             mesh=None, config: StarkConfig = REFERENCE,
+                             device=None, timings: dict = None):
+    """Proof from a precomputed trace: a list of ints, or a [steps, 8]
+    int32 array or tensor in the port's layout. The retry route of
+    `parallel.batch.prove_batch`.
+
+    The trace is proved VERBATIM, every row as given, as the reference's
+    mesh path does (`starks_tpu/prover.py:231`); the output is its last
+    row. A trace that breaks the MiMC recurrence therefore gives a proof
+    the verifier rejects. (The reference's mesh=None path uploads every
+    K-th row and regenerates the others from the recurrence, so it
+    proves the consistent trace through those rows instead; that upload
+    scheme works around its runtime and is not ported.) `mesh` is not
+    ported yet; `device` and `timings` as in `mk_mimc_proof`."""
+    return _prove_one(inp, steps, round_constants,
+                      lambda: _trace_array(trace, steps), mesh, config,
+                      device, timings)
+
+
+def mk_mimc_proof_batch_fused(inps, steps: int, round_constants,
+                              config: StarkConfig = REFERENCE,
+                              chunk: int = None, traces=None, device=None):
+    """Proofs of independent MiMC claims, one per input, each
+    byte-identical to `mk_mimc_proof` for that claim.
+
+    Claims go in chunks of `chunk` (default DEFAULT_CHUNK): each chunk
+    is one pass of the prover over a claim axis (one launch of each
+    kernel and blake2s tensor op for all of its claims) and one
+    device-to-host copy. Chunk i+1 is queued before chunk i's proofs are
+    assembled on the host, so the card works while the host decodes.
+    Traces come from the native runtime unless given (`traces`, one per
+    input, as `mk_mimc_proof_with_trace` takes them). `device` as in
+    `mk_mimc_proof`."""
+    device = _resolve_device(device)
+    _check_claim(steps, round_constants, config)
+    chunk = DEFAULT_CHUNK if chunk is None else chunk
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} < 1")
     su = _FusedSetup.get(steps, config, device)
     k_ext = su.k_ext(round_constants)
-    trace = ints_to_tensor(trace_ints, device)
-    timer.mark("setup + trace upload")
-
-    sections = _prove_sections(su, trace, k_ext, inp, trace_ints[-1], timer)
-    return _finish_proof(sections, 3 * NUM_WORDS, len(su.schedule), timer)
+    timer = _StageTimer(None, device)
+    inps = list(inps)
+    proofs, pending = [], None
+    for lo in range(0, len(inps), chunk):
+        part = [x % MODULUS for x in inps[lo:lo + chunk]]
+        part_traces = [
+            mimc_model.trace_limbs(x, steps, round_constants)
+            if traces is None else _trace_array(traces[lo + i], steps)
+            for i, x in enumerate(part)]
+        fetch = _prove_chunk(su, k_ext, part, part_traces, timer)
+        if pending is not None:
+            proofs += _finish_fetch(pending, 3 * NUM_WORDS,
+                                    len(su.schedule), timer)
+        pending = fetch
+    if pending is not None:
+        proofs += _finish_fetch(pending, 3 * NUM_WORDS, len(su.schedule),
+                                timer)
+    return proofs

@@ -1,13 +1,14 @@
 """The port's general AIR prover (starks_tpu_torch.air) on the CPU, at 64
-steps: its fib-square proof equals the JAX package's `prove_air` byte
-for byte, both verifiers accept it and reject tampered proofs, the
-declarative form gives the same bytes, and MiMC written as an AIR (the
-path that runs the cube kernel) is accepted with the right output.
+steps: its fib-square proof and its proof of MiMC written as an AIR
+(the path that runs the cube kernel, with a constant column) equal the
+JAX package's `prove_air` byte for byte, both verifiers accept them and
+reject tampered proofs, the declarative form gives the same bytes, and
+the MiMC AIR's output is mimc_forward's.
 
-The JAX proof costs an XLA:CPU compile of one to two minutes, so it runs
+The JAX proofs cost XLA:CPU compiles of one to two minutes, so they run
 once, in a fresh interpreter (tests/_subproc.py says why), started when
-this module's first test starts; the test that compares the bytes comes
-last and waits for it."""
+this module's first test starts; the tests that compare the bytes come
+last and wait for it."""
 
 import atexit
 import copy
@@ -42,18 +43,28 @@ if os.getppid() != int(sys.argv[3]):
     sys.exit(1)
 import jax
 jax.config.update("jax_platforms", "cpu")
-from starks_tpu.air import prove_air
+from starks_tpu.air import AIR, prove_air
 from starks_tpu.models.fib_square import fib_square_air
-proof = prove_air(fib_square_air(), [1, 1], int(sys.argv[2]))
+M = 2 ** 256 - 351 * 2 ** 32 + 1
+steps = int(sys.argv[2])
+# MiMC as an AIR, as tests/_air_impl.py builds it (TestMimcAsAir._air).
+mimc = AIR(width=1, step_fn=lambda s, c: [(s[0] ** 3 + c[0]) % M],
+           transition=lambda cur, nxt, c, ops: [
+               ops.sub(nxt[0], ops.add(ops.cube(cur[0]), c[0]))],
+           num_constraints=1, constants=[[(i ** 7) ^ 42 for i in range(16)]],
+           boundary_points=lambda n: [(0, 0), (n - 1, 0)])
+proofs = {"fib": prove_air(fib_square_air(), [1, 1], steps),
+          "mimc": prove_air(mimc, [3], steps)}
 with open(sys.argv[1], "wb") as f:
-    pickle.dump(proof, f)
+    pickle.dump(proofs, f)
 """
 
 
 @pytest.fixture(scope="module", autouse=True)
-def jax_fib_proof(tmp_path_factory):
-    """JAX `prove_air(fib_square_air(), [1, 1], STEPS)` in a subprocess,
-    running while this module's other tests do: (process, proof file)."""
+def jax_air_run(tmp_path_factory):
+    """JAX `prove_air` of fib-square ([1, 1]) and of MiMC as an AIR ([3])
+    at STEPS in a subprocess, running while this module's other tests
+    do: (process, proof file)."""
     out = tmp_path_factory.mktemp("jax_air") / "proof.pkl"
     # The compile is nearly all of the cost and the proof is tiny: with
     # XLA's backend optimisation off it takes half the CPU time. Integer
@@ -161,12 +172,25 @@ def test_prove_air_needs_a_card_without_device(monkeypatch):
         stt.prove_air(fib.fib_square_air(), [1, 1], STEPS)
 
 
-def test_proof_equals_jax_prove_air(fib_proof, jax_fib_proof):
-    """Byte equality with the JAX package's prover (kept last: it waits
-    for the subprocess started with this module)."""
-    proc, out = jax_fib_proof
+@pytest.fixture(scope="module")
+def jax_proofs(jax_air_run):
+    """The JAX proofs, once the subprocess started with this module has
+    written them: {"fib": ..., "mimc": ...}."""
+    proc, out = jax_air_run
     stdout, stderr = proc.communicate(timeout=JAX_TIMEOUT_S)
     assert proc.returncode == 0, f"JAX prove_air failed:\n{stderr[-4000:]}"
     with open(out, "rb") as f:
-        want = pickle.load(f)
-    assert fib_proof[0] == want
+        return pickle.load(f)
+
+
+def test_proof_equals_jax_prove_air(fib_proof, jax_proofs):
+    """Byte equality with the JAX package's prover (kept last but one:
+    it waits for the subprocess started with this module)."""
+    assert fib_proof[0] == jax_proofs["fib"]
+
+
+def test_mimc_as_air_equals_jax_prove_air(jax_proofs):
+    """MiMC as an AIR (16 constants, input 3): the cube kernel's path
+    and a constant column, byte for byte with JAX `prove_air`."""
+    proof = stt.prove_air(mimc_air(CONSTS), [3], STEPS, device="cpu")
+    assert proof == jax_proofs["mimc"]

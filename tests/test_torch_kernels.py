@@ -207,10 +207,17 @@ DIF_PASSES = [(2 ** 6, 4), (2 ** 7, 3), (2 ** 8, 3), (2 ** 9, 4),
               (2 ** 10, 4)]
 
 
+def _power_like(tab):
+    """tab with tab[0] = 1, as in every power table."""
+    return torch.cat([fl.from_jax_limbs(ints_to_limbs([1])), tab[1:]])
+
+
 @pytest.mark.parametrize("n,k", DIF_PASSES)
 def test_dif_transform_plain_matches_stage_chain(n, k):
+    """For a table with table[0] = 1 (the transform's domain: a power
+    table) the transform is the whole stage chain."""
     _, x = _rand(n, 120, edge=True)
-    _, tab = _rand(n, 121)
+    tab = _power_like(_rand(n, 121)[1])
     want = x
     for t in range(n.bit_length() - 1):
         want = plimbs.dif_stage_plain(want, tab, t)
@@ -378,17 +385,17 @@ def _host_cases():
     q = n // 4
     return {
         "dif_pass": (plimbs.dif_transform_plain(x, ptab),  # passes 3, 3, 2
-                     [x, ptab, None], [n, 3], (n, 8), (n, 8)),
+                     [x, ptab, None], [n, 3, 1], (n, 8), (n, 8)),
         "dit_pass": (plimbs.dit_transform_plain(x, tab),  # passes 2, 3, 3
-                     [x, tab], [n, 3, 0], (n, 8), (n, 8)),
+                     [x, tab], [n, 3, 0, 1], (n, 8), (n, 8)),
         "scale": (plimbs.scale_plain(x, s1), [x, s1, None], [n], (n, 8)),
         "db_map": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
-                   [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
+                   [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8, 1],
                    (n, 8), (n, 8)),
         "l_map": (plimbs.l_map_plain(d, p, b, cp, cb),
-                  [d, p, b, cp, 8, cb, 8], [n], (n, 8)),
+                  [d, p, b, cp, 8, cb, 8], [n, 1], (n, 8)),
         "fold4": (plimbs.fold4_plain(x[:q], tab, s1, s2, 4),  # round 2
-                  [x[:q], tab, s1, s2], [q // 4, 4], (q // 4, 8)),
+                  [x[:q], tab, s1, s2], [q // 4, 4, 1], (q // 4, 8)),
         "mul": (plimbs.mul_plain(x, cp), [x, n, cp, 8], [n], (n, 8)),
         "add": (plimbs.add_plain(s1[None], p), [s1, 1, p, n], [n], (n, 8)),
         "sub": (plimbs.sub_plain(z, xs), [z, 8, xs, n], [n], (n, 8)),
@@ -424,7 +431,7 @@ def test_host_ntt_dif_matches_stage_chain_and_jax(host_kernels, n, k):
     its last stage takes no twiddle product."""
     _, x, tab, want = _jax_dif_case(n)
     out, _ = _host_call(host_kernels, "starks_ntt_dif", [x, tab, None],
-                        [n, k], [(n, 8), (n, 8)])
+                        [n, k, 1], [(n, 8), (n, 8)])
     assert out.equal(plimbs.dif_transform_plain(x, tab))
     assert _same(out, want)
 
@@ -440,7 +447,7 @@ def test_host_ntt_dif_scaled_matches_stage_chain_and_jax(host_kernels, n,
         limbs = ints_to_limbs([v])
         s = fl.from_jax_limbs(limbs)[0]
         out, _ = _host_call(host_kernels, "starks_ntt_dif", [x, tab, s],
-                            [n, k], [(n, 8), (n, 8)])
+                            [n, k, 1], [(n, 8), (n, 8)])
         assert out.equal(plimbs.dif_transform_plain(x, tab, s))
         assert _same(out, _mul(want, jnp.broadcast_to(jnp.asarray(limbs),
                                                       want.shape)))
@@ -455,7 +462,7 @@ def test_host_ntt_dit_matches_stage_chain_and_jax(host_kernels, n, k,
     short one first."""
     x, tab, want = _jax_dit_case(n)
     out, _ = _host_call(host_kernels, "starks_ntt_dit", [x, tab],
-                        [n, k + wider, 0], [(n, 8), (n, 8)])
+                        [n, k + wider, 0, 1], [(n, 8), (n, 8)])
     assert out.equal(plimbs.dit_transform_plain(x, tab))
     assert _same(out, want)
 
@@ -481,7 +488,7 @@ def test_host_lde_compact_first_pass_matches_lde_fused(host_kernels, k):
     coeffs = fused.ntt_dif(trace, plan.inv_small, scale=plan.n_inv_small)
     n = plan.xs_big.shape[0]
     out, _ = _host_call(host_kernels, "starks_ntt_dit",
-                        [coeffs, plan.xs_big], [n, k, 3],
+                        [coeffs, plan.xs_big], [n, k, 3, 1],
                         [(n, 8), (n, 8)])
     assert _same(out, want)
 
@@ -541,7 +548,7 @@ def test_host_db_map_matches_plain_on_structured_values(host_kernels,
     s1, s2, s3 = (ints_to_tensor([v])[0] for v in (M - 1, 2 ** 255, 1))
     want = plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8)
     outs = _host_call(host_kernels, entry,
-                      [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8],
+                      [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8, 1],
                       [(n, 8), (n, 8)])
     assert all(o.equal(w) for o, w in zip(outs, want))
 
@@ -583,6 +590,137 @@ def test_host_stream_map_matches_plain(host_kernels, op, n):
             x, s, acc]
     (out,) = _host_call(host_kernels, entry, ins, [n], [(n, 8)])
     assert out.equal(want)
+
+
+def test_host_ntt_dif_drops_table0_as_plain(host_kernels):
+    """For a table with table[0] != 1 the card's last stage takes no
+    twiddle product, and the plain version drops it the same way: the
+    g++ build of the pass equals `dif_transform_plain`, which differs
+    from the stage chain that multiplies by table[0]."""
+    n, k = 256, 3
+    _, x = _rand(n, 180, edge=True)
+    _, tab = _rand(n, 181)
+    s = _rand(1, 182)[1][0]
+    assert not tab[0].equal(_power_like(tab)[0])
+    chain = x
+    for t in range(n.bit_length() - 1):
+        chain = plimbs.dif_stage_plain(chain, tab, t)
+    for scale in (None, s):
+        want = plimbs.dif_transform_plain(x, tab, scale)
+        out, _ = _host_call(host_kernels, "starks_ntt_dif", [x, tab, scale],
+                            [n, k, 1], [(n, 8), (n, 8)])
+        assert out.equal(want)
+    assert not plimbs.dif_transform_plain(x, tab).equal(chain)
+
+
+# -- the claim axis ---------------------------------------------------------
+
+CLAIMS = 3
+CLAIM_CASES = ["db_map", "dif_pass", "dit_pass", "dit_pass_compact", "fold4",
+               "l_map"]
+
+
+def _claim_cases():
+    """name -> (wrapper, args, claimed, C entry, C inputs, C ints, output
+    shapes) for the five kernels of the MiMC path over CLAIMS claims
+    with distinct inputs and per-claim operands (`claimed` marks the
+    arguments with the claim axis; the rest are shared)."""
+    n, q, b = 256, 64, CLAIMS
+
+    def per_claim(rows, seed):
+        return torch.stack([_rand(rows, seed + c,
+                                  edge=c == 0 and rows >= len(EDGE))[1]
+                            for c in range(b)])
+
+    x, p, d, bb, vals = (per_claim(n, s) for s in (200, 210, 220, 230, 240))
+    coeffs = per_claim(n // 8, 250)
+    slope, ia, sx = (per_claim(1, s)[:, 0] for s in (260, 270, 280))
+    cp, cb = per_claim(8, 290), per_claim(8, 300)
+    tab, xs, iz2 = (_rand(n, s)[1] for s in (310, 311, 312))
+    ptab = _power_like(tab)
+    k, z = _rand(64, 313)[1], _rand(8, 314)[1]
+    s1, s2 = (_rand(1, s)[1][0] for s in (315, 316))
+    full = (b, n, 8)
+    return {
+        "dif_pass": (plimbs.dif_transform, (x, ptab, 3, s1),
+                     (1, 0, 0, 0), "starks_ntt_dif", [x, ptab, s1],
+                     [n, 3, b], [full, full]),
+        "dit_pass": (plimbs.dit_transform, (x, tab, 3, 1), (1, 0, 0, 0),
+                     "starks_ntt_dit", [x, tab], [n, 3, 0, b],
+                     [full, full]),
+        "dit_pass_compact": (plimbs.dit_transform, (coeffs, tab, 5, 8),
+                             (1, 0, 0, 0), "starks_ntt_dit",
+                             [coeffs, tab], [n, 5, 3, b], [full, full]),
+        "db_map": (plimbs.db_map,
+                   (p, xs, k, z, iz2, s1, slope, ia, 8),
+                   (1, 0, 0, 0, 0, 0, 1, 1, 0), "starks_db_map",
+                   [p, xs, k, 64, z, 8, iz2, s1, slope, ia], [n, 8, b],
+                   [full, full]),
+        "l_map": (plimbs.l_map, (d, p, bb, cp, cb), (1, 1, 1, 1, 1),
+                  "starks_l_map", [d, p, bb, cp, 8, cb, 8], [n, b],
+                  [full]),
+        "fold4": (plimbs.fold4, (vals, tab, sx, s2, 2), (1, 0, 1, 0, 0),
+                  "starks_fold4", [vals, tab, sx, s2], [q, 2, b],
+                  [(b, q, 8)]),
+    }
+
+
+def _claim_args(args, claimed, c):
+    return tuple(a[c] if cl else a for a, cl in zip(args, claimed))
+
+
+def _stacked(outs):
+    """Per-claim results (a tensor or a tuple each) stacked on a claim
+    axis, as a tuple."""
+    outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+@pytest.mark.parametrize("name", CLAIM_CASES)
+def test_claim_axis_plain_equals_per_claim_calls(name):
+    """Each batched plain version (the wrapper on CPU tensors) equals its
+    unbatched plain version called claim by claim."""
+    wrapper, args, claimed, *_ = _claim_cases()[name]
+    got = wrapper(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = _stacked([wrapper(*_claim_args(args, claimed, c))
+                     for c in range(CLAIMS)])
+    assert len(got) == len(want)
+    assert all(g.equal(w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", CLAIM_CASES)
+def test_claim_axis_kernel_body_matches_plain(host_kernels, name):
+    """The g++ build of each kernel body over CLAIMS claims in one call
+    equals the batched plain version."""
+    wrapper, args, _, entry, ins, ints, out_shapes = _claim_cases()[name]
+    want = wrapper(*args)
+    want = want if isinstance(want, tuple) else (want,)
+    outs = _host_call(host_kernels, entry, ins, ints, out_shapes)
+    assert all(o.equal(w) for o, w in zip(outs, want))
+
+
+def test_claim_axis_rejects_mismatched_operands():
+    """A per-claim operand must carry the array's claim axis, a shared
+    one must not."""
+    _, args, *_ = _claim_cases()["db_map"]
+    p, xs, k, z, iz2, last, slope, ia, shift = args
+    with pytest.raises(ValueError):
+        plimbs.db_map(p, xs, k, z, iz2, last, slope[0], ia, shift)
+    with pytest.raises(ValueError):
+        plimbs.db_map(p[0], xs, k, z, iz2, last, slope, ia, shift)
+    with pytest.raises(ValueError):
+        plimbs.db_map(p, xs[None].expand(CLAIMS, -1, -1), k, z, iz2, last,
+                      slope, ia, shift)
+    _, (d, pp, bb, cp, cb), *_ = _claim_cases()["l_map"]
+    with pytest.raises(ValueError):
+        plimbs.l_map(d, pp, bb, cp[0], cb)
+    _, (vals, ip, sx, eta, shift), *_ = _claim_cases()["fold4"]
+    with pytest.raises(ValueError):
+        plimbs.fold4(vals, ip, sx[:2], eta, shift)
+    with pytest.raises(ValueError):
+        plimbs.dif_transform(torch.zeros((1, 1, 4, 8), dtype=torch.int32),
+                             ip)
 
 
 # -- dispatch ---------------------------------------------------------------
