@@ -42,11 +42,14 @@ Phases (any failure exits non-zero and prints no result):
      launches per proof; the declarative form equal to the closure form
      at 2^13; MiMC written as an AIR at 2^13 accepted with the output of
      mimc_forward (the path of the cube kernel);
-  6. one more MiMC 2^16 and fib-square 2^13 and 2^16 proof each under
-     torch.profiler, after all timed proofs: CUDA launches, device busy
-     share against the steady stage-timed wall time, device time of the
-     field kernels;
-  7. every kernel's launches on each main path: the steady MiMC 2^16,
+  6. batch proving (config 5): prove_batch of 64 x 2^16 claims, chunk
+     16, verified, with a proof store and a resume; claims against
+     serial proofs and the oracle; chunks of 16, 4 and 1;
+  7. one more MiMC 2^16 and 2^20 and fib-square 2^13 and 2^16 proof and
+     one batch chunk each under torch.profiler, after all timed proofs:
+     CUDA launches, device busy share against the steady stage-timed
+     wall time, device time of the field kernels;
+  8. every kernel's launches on each main path: the steady MiMC 2^16,
      fib-square 2^13 and 2^16 proofs and the MiMC-as-AIR proof, each
      counted alone (counts set to 0 just before it, read just after);
      each kernel > 0 on every path that runs it, no scale launch on the
@@ -54,6 +57,23 @@ Phases (any failure exits non-zero and prints no result):
      and two DIT pass launches per column;
      one JSON line of kernel rows, each with the count of its own main
      path and the counts of every path, and the result line.
+  9. benchmark config 4 (BASELINE.md:267: 2^20 steps, a 2^23-point
+     domain), run after phase 6 and before the profiled proofs: each
+     kernel at config 4's shapes against its plain version, timed
+     beside its bound (the DIF transform at 2^20 with 1/n and the
+     four-step's local batches, the three-pass DIT to 2^23, the D/B
+     map at 2^23 and on a shard with its halo, the L map, fold4 at all
+     nine rounds and on a shard's quarter slices, the twiddle product),
+     and NTT points/s at 2^20; the set-up of a 2^20 proof (native
+     tables, no Python int per point), a first and a steady proof with
+     stage times, verified, a flipped byte rejected, peak memory and
+     size; then SHARDS ranks (parallel/launch.py), each on cuda:(rank %
+     device_count), prove 2^16 and 2^20 steps sharded: every rank's
+     proof equals the one-card proof byte for byte; per rank the stage
+     times, each collective's count, bytes sent to other ranks and
+     seconds, the transport, and the launches (phase 8 counts both
+     paths).
+Phase 8 also requires the config 4 paths to launch only their kernels.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -80,6 +100,9 @@ CHECK_CLAIMS = 3              # the claim axis against one-claim launches
 TIMED_CLAIMS = 16             # the claim axis timed (the batch chunk)
 BATCH_CLAIMS = 64             # BASELINE.md config 5: 64 claims, 2^16 steps
 BATCH_CHUNK = 16
+CONFIG4_STEPS = 2 ** 20       # BASELINE.md config 4: 2^20 steps, 2^23 points
+SHARDS = 4                    # config 4's mesh: four ranks, one row
+SHARD_TIMEOUT_S = 600
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
 # 32-bit integer multiply-adds at 64 per clock per SM (CUDA C++
@@ -127,12 +150,21 @@ FIB_BIG = f"fib-square {BIG_STEPS}"
 MIMC = f"MiMC {BIG_STEPS}"
 MIMC_AIR = f"MiMC-as-AIR {SMALL_STEPS}"
 BATCH = f"batch chunk of {BATCH_CHUNK} x MiMC {BIG_STEPS}"
+MIMC4 = f"MiMC {CONFIG4_STEPS}"
+SHARDED = f"MiMC {{}} over {SHARDS} shards, per rank"
+MIMC4_SHARDED = SHARDED.format(CONFIG4_STEPS)
+# The sharded LDE is two four-step NTTs: DIF passes over a claim axis
+# and the twiddle product (mul); no DIT pass.
+SHARD_KERNELS = ["dif_pass", "mul", "db_map", "l_map", "fold4"]
 PATH_KERNELS = {
     MIMC: NTT_FRI + ["db_map", "l_map"],
     FIB_BIG: NTT_FRI + ["scale", "mul", "add", "sub"],
     FIB: NTT_FRI + ["scale", "mul", "add", "sub"],
     MIMC_AIR: NTT_FRI + ["scale", "mul", "add", "sub", "cube"],
     BATCH: NTT_FRI + ["db_map", "l_map"],
+    MIMC4: NTT_FRI + ["db_map", "l_map"],
+    SHARDED.format(BIG_STEPS): SHARD_KERNELS,
+    MIMC4_SHARDED: SHARD_KERNELS,
 }
 
 
@@ -783,9 +815,10 @@ def phase_small_proof(steps, device):
     return want
 
 
-def phase_big_proof(steps, device):
-    """Phase 4: a large proof verifies; a flipped byte is rejected.
-    Returns the steady proof's wall time and launch counts."""
+def prove_and_check(steps, device):
+    """A first proof (with set-up), then a steady one, counted: it
+    verifies and a flipped byte is rejected. Returns the steady proof,
+    the first and steady stage times and the launch counts."""
     import starks_tpu_torch as stt
     first, steady = {}, {}
     stt.mk_mimc_proof(INP, steps, CONSTS, device=device, timings=first)
@@ -794,19 +827,27 @@ def phase_big_proof(steps, device):
     out = stt.mimc_forward(INP, steps, CONSTS)
     t0 = time.perf_counter()
     check(stt.verify_mimc_proof(INP, steps, CONSTS, out, proof),
-          "verifier rejected the large proof")
+          f"verifier rejected the {steps}-step proof")
     verify_s = time.perf_counter() - t0
-    leaf = bytearray(proof[2][0][0])
+    bad = copy.deepcopy(proof)
+    leaf = bytearray(bad[2][0][0])
     leaf[0] ^= 1
-    proof[2][0][0] = bytes(leaf)
+    bad[2][0][0] = bytes(leaf)
     expect_rejected(
-        lambda q: stt.verify_mimc_proof(INP, steps, CONSTS, out, q), proof,
+        lambda q: stt.verify_mimc_proof(INP, steps, CONSTS, out, q), bad,
         "a tampered proof")
     print(f"  {steps}-step proof verified in {verify_s:.3f} s; tampered "
           f"proof rejected", flush=True)
     print_launches(launches)
     print_stages(first, steady)
-    return steady["total"], launches
+    return proof, first, steady, launches
+
+
+def phase_big_proof(steps, device):
+    """Phase 4: a large proof verifies; a flipped byte is rejected.
+    Returns the proof, the steady proof's wall time and launch counts."""
+    proof, _, steady, launches = prove_and_check(steps, device)
+    return proof, steady["total"], launches
 
 
 def print_stages(first, steady):
@@ -1056,16 +1097,284 @@ def phase_batch(device, small_oracle):
     return per_chunk[BATCH_CHUNK], launches
 
 
-def phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s):
-    """Phase 7: one more proof of each timed kind, and one batch chunk,
-    under torch.profiler. It runs after every timed proof, so no timing
-    follows a profiler run."""
+def config4_cases(device):
+    """(name, shape, wrapper, plain, args, bytes, ops, warm) for each
+    kernel at the shapes config 4 gives it: on one card the inverse DIF
+    transform of the 2^20-step trace with 1/n, the DIT transform of its
+    compact coefficients to 2^23 points (three passes), the D/B and L
+    maps at 2^23 and fold4 at every FRI round from 2^23; over SHARDS
+    shards (per rank) the four-step transforms' local DIF batches, the
+    twiddle product, the D/B map of a shard with its halo, and round 0's
+    fold of a shard's quarter slices."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    gen = torch.Generator().manual_seed(SEED + 9)
+    steps, s = CONFIG4_STEPS, SHARDS
+    n = steps * EXT
+    edge = edge_elems(device)
+
+    def arr(m, front=edge):
+        return with_edges(rand_elems(m, gen, device), front)
+
+    def one():
+        return rand_elems(1, gen, device)[0]
+
+    def dif_plain(x, tw, k=None, sc=None):
+        return plimbs.dif_transform_plain(x, tw, sc)
+
+    def dit_plain(x, tw, k=None, ext=1):
+        return plimbs.dit_transform_plain(x, tw, ext)
+
+    def db_bytes(m):
+        return ELEM * (5 * m + EXT * len(CONSTS) + EXT + 3)
+
+    db_ops = 5 * OPS_MUL + OPS_SQR + 5 * OPS_ADD
+    p, xs, iz2, d, b = (arr(n) for _ in range(5))
+    k_tab, zni, cp, cb = arr(EXT * len(CONSTS)), arr(EXT), arr(EXT), arr(EXT)
+    last, slope, ia, sx, eta, sc = (one() for _ in range(6))
+    cases = [
+        ("dif_pass", "2^20 with 1/n", plimbs.dif_transform, dif_plain,
+         (arr(steps), power_like(arr(steps)), None, sc),
+         ELEM * (2 * steps + steps // 2), dif_ops(steps), True),
+        ("dit_pass", "2^20 compact -> 2^23, 3 passes", plimbs.dit_transform,
+         dit_plain, (arr(steps), arr(n), None, EXT),
+         ELEM * (steps + n + n // 2), dit_ops(n, EXT), True),
+        ("db_map", "2^23", plimbs.db_map, plimbs.db_map_plain,
+         (p, xs, k_tab, zni, iz2, last, slope, ia, EXT), db_bytes(n),
+         n * db_ops, False),
+        ("l_map", "2^23", plimbs.l_map, plimbs.l_map_plain, (d, p, b, cp, cb),
+         ELEM * (4 * n + 2 * EXT), n * (2 * OPS_MUL + 2 * OPS_ADD), False),
+    ]
+    ip = arr(n // 4)
+    n_r, r = n, 0
+    while n_r // 4 >= 2 ** 5:
+        q = n_r // 4
+        cases.append(("fold4", f"round {r}: 2^{n_r.bit_length() - 1} -> "
+                      f"2^{q.bit_length() - 1}", plimbs.fold4,
+                      plimbs.fold4_plain, (arr(n_r), ip, sx, eta, 2 * r),
+                      ELEM * (n_r + 2 * q + 2),
+                      q * (5 * OPS_MUL + 13 * OPS_ADD), True))
+        n_r, r = q, r + 1
+    check(r == 9, f"{r} FRI rounds at 2^23 points, expected 9")
+    # Per rank of the sharded proof: the four-step splits of the trace
+    # (2^10 x 2^10) and of the domain (2^11 x 2^12), each a batch of the
+    # local columns or rows.
+    for size, rows, scaled in ((2 ** 10, 2 ** 10 // s, True),
+                               (2 ** 11, 2 ** 12 // s, False),
+                               (2 ** 12, 2 ** 11 // s, False)):
+        x = torch.stack([arr(size) for _ in range(rows)])
+        cases.append(("dif_pass", f"four-step local: {rows} x 2^"
+                      f"{size.bit_length() - 1}"
+                      + (" with 1/n" if scaled else ""),
+                      plimbs.dif_transform, dif_plain,
+                      (x, power_like(arr(size)), None, sc if scaled else None),
+                      ELEM * (2 * rows * size + size // 2),
+                      rows * dif_ops(size, scaled), True))
+    m = n // s
+    cases.append(("mul", "four-step twiddle, 2^21 per rank", plimbs.mul,
+                  plimbs.mul_plain, (arr(m), arr(m)), ELEM * 3 * m,
+                  m * OPS_MUL, False))
+    halo = arr(EXT)
+    cases.append(("db_map", "a shard of 2^21 with its halo", plimbs.db_map,
+                  plimbs.db_map_plain,
+                  (p[:m], xs[:m], k_tab, zni, iz2[:m], last, slope, ia, EXT,
+                   halo), db_bytes(m) + ELEM * EXT, m * db_ops, False))
+    q_loc = n // 4 // s
+    cases.append(("fold4", "round 0 of a shard: 4 x 2^19 quarter slices",
+                  plimbs.fold4, plimbs.fold4_plain,
+                  (arr(4 * q_loc), ip[q_loc:2 * q_loc], sx, eta, 0),
+                  ELEM * (6 * q_loc + 2), q_loc * (5 * OPS_MUL + 13 * OPS_ADD),
+                  True))
+    return cases
+
+
+def phase_config4_kernels(rows, device):
+    """Phase 9, first part: each kernel at config 4's shapes equals its
+    plain version exactly; its device time per launch beside its bound
+    goes into its row's `config4` list. Then the forward NTT's points/s
+    at 2^20 (the DIF transform, BASELINE.md:259)."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    sms, mhz = card_clocks(device)
+    ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=device).zero_
+    for name, shape, wrapper, plain, args, nbytes, ops, warm in \
+            config4_cases(device):
+        err = max_abs_err(wrapper, plain, args)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        plain(*args)
+        torch.cuda.synchronize(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dev, per_call = kernel_times(lambda: wrapper(*args), device,
+                                     None if warm else flush)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
+        entry = {"shape": shape, "max_abs_err": err, "ms": dev,
+                 "call_ms": per_call, "plain_ms": plain_ms,
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "l2": "warm" if warm else "flushed"}
+        rows[name].setdefault("config4", []).append(entry)
+        print(f"  {name:<9s} {shape}: equal to plain (max_abs_err {err}); "
+              f"device {dev:.6f} ms, per-call {per_call:.6f} ms, plain "
+              f"{plain_ms:.3f} ms (one call), bound {entry['bound_ms']:.6f}"
+              f" ms ({entry['bound_by']}, {entry['bound_ms'] / dev:.1%}), "
+              f"L2 {entry['l2']}", flush=True)
+        del args
+    gen = torch.Generator().manual_seed(SEED + 10)
+    n = CONFIG4_STEPS
+    x, tw = rand_elems(n, gen, device), power_like(rand_elems(n, gen, device))
+    dev, _ = kernel_times(lambda: plimbs.dif_transform(x, tw), device)
+    print(f"  NTT at 2^20 points (forward DIF transform, "
+          f"{-(-20 // plimbs.dif_pass_stages(n))} passes): device {dev:.6f} "
+          f"ms, {n / dev * 1e3:.4e} points/s", flush=True)
+
+
+def shard_rank(rank, steps):
+    """One rank of a sharded proof on the card(s) (run by parallel.launch):
+    a first proof with set-up, then a steady one, counted and with each
+    collective timed. Returns what the parent checks and prints."""
+    import torch
+    import starks_tpu_torch as stt
+    from starks_tpu_torch.ops import plimbs
+    from starks_tpu_torch.parallel import mesh as pmesh
+    mesh = pmesh.make_mesh()
+    t0 = time.perf_counter()
+    stt.mk_mimc_proof(INP, steps, CONSTS, mesh=mesh)
+    first_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    mesh.reset_counts()
+    mesh.timed = True
+    steady = {}
+    proof, launches = counted(lambda: stt.mk_mimc_proof(
+        INP, steps, CONSTS, mesh=mesh, timings=steady))
+    return {"proof": proof, "first_s": first_s, "steady": steady,
+            "launches": launches, "counts": mesh.counts,
+            "bytes": mesh.bytes, "seconds": mesh.seconds,
+            "transport": mesh.transport, "device": str(mesh.device),
+            "peak": torch.cuda.max_memory_allocated(mesh.device)}
+
+
+def dif_passes(n) -> int:
+    from starks_tpu_torch.ops import plimbs
+    return -(-(n.bit_length() - 1) // plimbs.dif_pass_stages(n))
+
+
+def phase_sharded(steps, want, launches):
+    """Phase 9, sharded: SHARDS ranks, one row, each on cuda:(rank %
+    device_count) (gloo through pinned host memory when ranks share a
+    card, NCCL when each has its own), prove `steps`; every rank's proof
+    equals `want` (the single-card proof) byte for byte. Prints each
+    rank's stage times, collectives (count, bytes sent to other ranks,
+    seconds) and launches, and puts rank 0's launches into `launches`."""
+    import collections
+    import torch
+    from starks_tpu_torch.ops import fused
+    from starks_tpu_torch.parallel import launch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = launch.run(shard_rank, SHARDS, steps, device="cuda",
+                         timeout=SHARD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(all(r["proof"] == want for r in results),
+          f"a {SHARDS}-rank {steps}-step proof differs from the single-card "
+          f"proof")
+    cards = collections.Counter(r["device"] for r in results)
+    print(f"  {SHARDS} ranks ({launch.backend_for(SHARDS, 'cuda')}; "
+          f"transport: {results[0]['transport']}); ranks per card: "
+          + ", ".join(f"{dev} {k}" for dev, k in sorted(cards.items()))
+          + f"; every rank's {steps}-step proof equals the single-card proof "
+          f"byte for byte ({wall:.1f} s for the whole launch, start-up "
+          f"included)", flush=True)
+    rounds = len(fused.fri_round_schedule(steps * EXT, steps * 2, 16))
+    n1_trace = 1 << ((steps.bit_length() - 1) // 2)
+    n1_lde = 1 << (((steps * EXT).bit_length() - 1) // 2)
+    want_dif = (dif_passes(n1_trace) + dif_passes(steps // n1_trace)
+                + dif_passes(n1_lde) + dif_passes(steps * EXT // n1_lde))
+    for rank, r in enumerate(results):
+        a2a = r["counts"]["all_to_all_single"]
+        check(a2a == 2 * 3 + 1 + rounds,
+              f"rank {rank}: {a2a} all_to_all_single, expected 3 per "
+              f"four-step transform (2), 1 for the padding and {rounds} for "
+              f"the FRI rounds")
+        check(r["launches"]["dif_pass"] == want_dif
+              and r["launches"]["mul"] == 2
+              and r["launches"]["dit_pass"] == 0
+              and r["launches"]["fold4"] == rounds,
+              f"rank {rank}: launches {r['launches']}")
+        print(f"  rank {rank} on {r['device']}: first call (with set-up) "
+              f"{r['first_s']:.3f} s, peak memory "
+              f"{r['peak'] / 2 ** 30:.3f} GiB; steady stages (ms): "
+              + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in
+                          r["steady"].items()), flush=True)
+        print(f"    collectives (count, MB to other ranks, s): " + ", ".join(
+            f"{k} {r['counts'][k]} / {r['bytes'][k] / 1e6:.3f} / "
+            f"{r['seconds'][k]:.4f}" for k in r["counts"]), flush=True)
+        print(f"    launches: " + ", ".join(
+            f"{k} {v}" for k, v in r["launches"].items() if v), flush=True)
+    launches[SHARDED.format(steps)] = results[0]["launches"]
+
+
+def phase_config4(rows, device, proof16, launches):
+    """Phase 9: benchmark config 4 (BASELINE.md:267), 2^20 steps, a 2^23-
+    point domain: the kernels at its shapes; on one card a first proof
+    (with set-up, which must build no table from Python ints per point)
+    and a steady one, verified, with a flipped byte rejected, its peak
+    memory and size; then sharded over SHARDS ranks at 2^16 steps
+    (equal to phase 4's proof) and at 2^20 (equal to the one-card
+    proof). Returns the one-card steady proof's wall time."""
+    import torch
+    import starks_tpu_torch as stt
+    from starks_tpu_torch import prover
+    from starks_tpu_torch.ops import fused
+    from starks_tpu_torch.utils import hostfield
+    phase_config4_kernels(rows, device)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with Spy(fused, "powers") as powers, \
+            Spy(hostfield, "multi_inv") as multi_inv:
+        t0 = time.perf_counter()
+        prover._FusedSetup.get(CONFIG4_STEPS, stt.REFERENCE, device)
+        torch.cuda.synchronize(device)
+        setup_s = time.perf_counter() - t0
+    check(powers.calls == 0 and multi_inv.calls == 0,
+          f"the set-up built a table from Python ints ({powers.calls} "
+          f"powers, {multi_inv.calls} multi_inv calls)")
+    proof, first, steady, launches[MIMC4] = prove_and_check(CONFIG4_STEPS,
+                                                            device)
+    peak = torch.cuda.max_memory_allocated(device)
+    check(launches[MIMC4]["dit_pass"] == 3
+          and launches[MIMC4]["dif_pass"] == 2
+          and launches[MIMC4]["fold4"] == 9,
+          f"{MIMC4} launches {launches[MIMC4]}")
+    print(f"  {MIMC4}: set-up {setup_s:.3f} s (the native runtime's "
+          f"tables; no Python int per point: fused.powers and "
+          f"hostfield.multi_inv not called); peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB; bin_length {stt.bin_length(proof)} B, "
+          f"raw_length {stt.raw_length(proof)} B", flush=True)
+    print(f"  sharded, {BIG_STEPS} steps:", flush=True)
+    phase_sharded(BIG_STEPS, proof16, launches)
+    print(f"  sharded, {CONFIG4_STEPS} steps:", flush=True)
+    phase_sharded(CONFIG4_STEPS, proof, launches)
+    return steady["total"]
+
+
+def phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,
+                   mimc4_steady_s):
+    """Phase 7: one more proof of each timed kind (MiMC 2^16 and 2^20 on
+    one card, fib-square), and one batch chunk, under torch.profiler. It
+    runs after every timed proof, so no timing follows a profiler
+    run."""
     import starks_tpu_torch as stt
     from starks_tpu_torch.models import fib_square as fib
-    print(f"  MiMC {BIG_STEPS} steps:", flush=True)
-    profile_proof(lambda: stt.mk_mimc_proof(INP, BIG_STEPS, CONSTS,
-                                            device=device),
-                  device, mimc_steady_s)
+    for steps, steady_s in ((BIG_STEPS, mimc_steady_s),
+                            (CONFIG4_STEPS, mimc4_steady_s)):
+        print(f"  MiMC {steps} steps:", flush=True)
+        profile_proof(lambda: stt.mk_mimc_proof(INP, steps, CONSTS,
+                                                device=device),
+                      device, steady_s)
     air = fib.fib_square_air()
     for steps, steady in air_steady_s.items():
         print(f"  fib-square {steps} steps:", flush=True)
@@ -1184,6 +1493,10 @@ def phase_launches(rows, launches):
               f"{count} per {MIMC} proof")
     print(f"  {BATCH}: every kernel's launches equal one {MIMC} proof's",
           flush=True)
+    for path in (MIMC4, SHARDED.format(BIG_STEPS), MIMC4_SHARDED):
+        extra = [k for k, v in launches[path].items()
+                 if v and k not in PATH_KERNELS[path]]
+        check(not extra, f"the {path} path launched {extra}")
     check(launches[MIMC]["scale"] == 0,
           f"{launches[MIMC]['scale']} scale launches on the {MIMC} path")
     for name in ("dif_pass", "dit_pass"):
@@ -1231,7 +1544,8 @@ def main() -> int:
     print("phase 3: main path, small proof", flush=True)
     small_oracle = phase_small_proof(SMALL_STEPS, device)
     print("phase 4: main path, large proof", flush=True)
-    mimc_steady_s, mimc_launches = phase_big_proof(BIG_STEPS, device)
+    proof16, mimc_steady_s, mimc_launches = phase_big_proof(BIG_STEPS,
+                                                           device)
 
     print("phase 5: general AIR proofs", flush=True)
     air_steady_s, launches = phase_air(device)
@@ -1241,8 +1555,16 @@ def main() -> int:
           f"chunk {BATCH_CHUNK}, verified)", flush=True)
     chunk_steady_s, launches[BATCH] = phase_batch(device, small_oracle)
 
+    # Config 4 runs before phase 7: a profiler session slows every later
+    # launch in the process.
+    print(f"phase 9: benchmark config 4 ({CONFIG4_STEPS} steps, "
+          f"{CONFIG4_STEPS * EXT}-point domain), one card and {SHARDS} "
+          f"shards", flush=True)
+    mimc4_steady_s = phase_config4(rows, device, proof16, launches)
+
     print("phase 7: profiled proofs", flush=True)
-    phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s)
+    phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,
+                   mimc4_steady_s)
 
     print("phase 8: launches on the main paths", flush=True)
     phase_launches(rows, launches)

@@ -6,7 +6,12 @@ proofs: `mk_mimc_proof`, `mk_mimc_proof_batch_fused` (many claims over
 a claim axis) and `prove_air` run the hand-written CUDA kernels of
 csrc/ on the card (or their plain PyTorch versions with `device="cpu"`)
 and produce proofs byte-identical to the reference;
-`verify_mimc_proof` and `verify_air` check them on the host.
+`verify_mimc_proof` and `verify_air` check them on the host. With a
+`mesh` (`parallel.mesh.make_mesh` over a `torch.distributed` group),
+`mk_mimc_proof`, `mk_mimc_proof_with_trace`, `prove_batch` and
+`prove_low_degree` (FRI alone, checked by `verify_low_degree_proof`)
+shard the evaluation domain over the mesh's ranks, with the four-step
+NTT (parallel/ntt4step.py) and sharded trees and FRI rounds.
 `prove_batch` adds resume from a proof store (utils/artifacts.py),
 self-verification and retries through `mk_mimc_proof_with_trace`;
 `serialize_proof` and `deserialize_proof` are the wire format. The
@@ -14,9 +19,10 @@ Fibonacci-square AIR is in `starks_tpu_torch.models.fib_square`.
 """
 
 from .config import StarkConfig, REFERENCE
-from .prover import (mk_mimc_proof, mk_mimc_proof_with_trace,
-                     mk_mimc_proof_batch_fused)
-from .verifier import verify_mimc_proof, VerificationError
+from .prover import (MODULUS, mk_mimc_proof, mk_mimc_proof_with_trace,
+                     mk_mimc_proof_batch_fused, prove_low_degree)
+from .verifier import (verify_mimc_proof, verify_low_degree_proof,
+                       VerificationError)
 from .models.mimc import mimc_forward
 from .air import AIR, prove_air, verify_air
 from .parallel.batch import prove_batch, verify_batch
@@ -26,9 +32,10 @@ from .serialize import (serialize as serialize_proof,
                         deserialize as deserialize_proof, bin_length,
                         raw_length)
 
-__all__ = ["StarkConfig", "REFERENCE", "mk_mimc_proof",
+__all__ = ["StarkConfig", "REFERENCE", "MODULUS", "mk_mimc_proof",
            "mk_mimc_proof_with_trace", "mk_mimc_proof_batch_fused",
-           "verify_mimc_proof", "VerificationError", "mimc_forward", "AIR",
-           "prove_air", "verify_air", "prove_batch", "verify_batch",
+           "prove_low_degree", "verify_mimc_proof",
+           "verify_low_degree_proof", "VerificationError", "mimc_forward",
+           "AIR", "prove_air", "verify_air", "prove_batch", "verify_batch",
            "serialize_proof", "deserialize_proof", "bin_length",
            "raw_length"]

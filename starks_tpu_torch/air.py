@@ -256,11 +256,11 @@ def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
     # Commit #1: leaf = P cols || D cols || B cols.
     m_leaf = torch.cat([b2.limbs_to_words(c)
                         for c in p_cols + d_cols + b_cols], dim=-1)
-    m_lvl1, m_levels, m_root = merkle.tree_build(m_leaf)
+    m_tree = merkle.Tree(m_leaf)
     timer.mark("merkle #1 (P||D||B)")
 
     # Fiat-Shamir weights: D columns, then (k', k'') per P and B column.
-    ks = iter([td.challenge_limbs(m_root, j + 1)
+    ks = iter([td.challenge_limbs(m_tree.root, j + 1)
                for j in range(su.n_weights)])
     l_vals = None
     for d in d_cols:
@@ -269,8 +269,7 @@ def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
         coef = td.lincomb_coeffs(next(ks), next(ks), su.h_pows)
         term = plimbs.mul(col, coef)
         l_vals = term if l_vals is None else plimbs.add(l_vals, term)
-    return prover._query_sections(su, m_leaf, m_lvl1, m_levels, m_root,
-                                  l_vals, timer)
+    return prover._query_sections(su, m_tree, l_vals, timer)
 
 
 def prove_air(air: AIR, inputs, steps: int,

@@ -416,8 +416,11 @@ int stream_map(const Fe* x, const Fe* y, const Fe* s, Fe* out, uint32_t n,
 // A4: constraint, quotient and boundary map (replaces _db_kernel):
 //   C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
 //   B = (P - (ia + slope*x)) * Z2^-1.
-// P(g1 x) is P read `shift` elements ahead, cyclically; K and Znum^-1
-// are tables of power-of-two length, read as tab[i & mask]. Six modmuls
+// P(g1 x) is P read `shift` elements ahead, cyclically; on one shard
+// of a sharded domain, the `shift` elements past the shard's end come
+// from `halo` (the next shard's first `shift` elements, per claim)
+// instead, so the shard's P is never copied. K and Znum^-1 are tables
+// of power-of-two length, read as tab[i & mask]. Six modmuls
 // per element, one of them a square (P^2 for the cube); the kernel is
 // bound by the rate of their integer instructions, about as many on
 // the multiply-add pipe as on the add pipe (chip_smoke.py prints the
@@ -427,7 +430,8 @@ int stream_map(const Fe* x, const Fe* y, const Fe* s, Fe* out, uint32_t n,
 // did not: uncapped, the kernel needs 90 and runs two blocks an SM,
 // 10% slower than three.
 KERNEL MIN_BLOCKS(3)
-    db_kernel(const Fe* __restrict__ p, const Fe* __restrict__ xs,
+    db_kernel(const Fe* __restrict__ p, const Fe* __restrict__ halo,
+              const Fe* __restrict__ xs,
               const Fe* __restrict__ k_tab, uint32_t k_mask,
               const Fe* __restrict__ zni_tab, uint32_t zni_mask,
               const Fe* __restrict__ iz2, const Fe* __restrict__ last,
@@ -437,13 +441,16 @@ KERNEL MIN_BLOCKS(3)
   FOR_EACH_CLAIM(cl, batch) {
     const size_t o = (size_t)cl * n;
     const Fe* __restrict__ pc = p + o;
+    // Past the end: the halo, or P's own start (one unsharded domain).
+    const Fe* __restrict__ wrap = halo ? halo + (size_t)cl * shift : pc;
     Fe* __restrict__ dc = d_out + o;
     Fe* __restrict__ bc = b_out + o;
     const Fe last_v = *last, slope_v = slope[cl], ia_v = ia[cl];
     FOR_EACH(i, n) {
-      const uint32_t ir = i + shift < n ? i + shift : i + shift - n;
+      const uint32_t j = i + shift;
+      const Fe pn = j < n ? pc[j] : wrap[j - n];
       const Fe pv = pc[i], x = xs[i];
-      const Fe c = field::sub(field::sub(pc[ir], field::cube(pv)),
+      const Fe c = field::sub(field::sub(pn, field::cube(pv)),
                               k_tab[i & k_mask]);
       dc[i] = field::mul(field::mul(c, field::sub(x, last_v)),
                          zni_tab[i & zni_mask]);
@@ -639,16 +646,18 @@ int starks_scale(const void* x, const void* s, const void* acc, void* out,
 }
 
 // The D/B, L and fold4 maps over `batch` claims ([batch, n] arrays; the
-// per-claim operands as their kernels say).
-int starks_db_map(const void* p, const void* xs, const void* k_tab,
-                  uint32_t k_len, const void* zni_tab, uint32_t zni_len,
-                  const void* iz2, const void* last, const void* slope,
-                  const void* ia, void* d_out, void* b_out, uint32_t n,
-                  uint32_t shift, uint32_t batch, void* stream) {
+// per-claim operands as their kernels say). The D/B map's halo is null
+// or [batch, shift] elements.
+int starks_db_map(const void* p, const void* halo, const void* xs,
+                  const void* k_tab, uint32_t k_len, const void* zni_tab,
+                  uint32_t zni_len, const void* iz2, const void* last,
+                  const void* slope, const void* ia, void* d_out,
+                  void* b_out, uint32_t n, uint32_t shift, uint32_t batch,
+                  void* stream) {
   if ((k_len & (k_len - 1)) || (zni_len & (zni_len - 1))) return -1;
-  LAUNCH(db_kernel, n, batch, stream, F(p), F(xs), F(k_tab), k_len - 1,
-         F(zni_tab), zni_len - 1, F(iz2), F(last), F(slope), F(ia),
-         W(d_out), W(b_out), n, shift, batch);
+  LAUNCH(db_kernel, n, batch, stream, F(p), F(halo), F(xs), F(k_tab),
+         k_len - 1, F(zni_tab), zni_len - 1, F(iz2), F(last), F(slope),
+         F(ia), W(d_out), W(b_out), n, shift, batch);
 }
 
 int starks_l_map(const void* d, const void* p, const void* b, const void* cp,

@@ -7,8 +7,9 @@
 // with two shifted multiply-adds by c plus a conditional subtract.
 //
 // It takes the O(steps) sequential host loops off the prover: the MiMC
-// trace (a chain of dependent cubes, SURVEY §8 hard part #4) and power
-// tables, both Python-bigint loops otherwise.
+// trace (a chain of dependent cubes, SURVEY §8 hard part #4), power
+// tables and their slices, the four-step NTT's twiddle grid and the
+// prover's 1/Z2 table, all Python-bigint loops otherwise.
 //
 // ABI: plain C, element = 32 bytes little-endian, which is the port's
 // [n, 8] int32 layout (8 little-endian 32-bit words), so arrays pass as
@@ -51,6 +52,10 @@ inline void sub_p(Fe &a) {
 
 inline void cond_reduce(Fe &a) { if (geq_p(a)) sub_p(a); }
 
+inline bool is_zero(const Fe &a) {
+  return !(a.v[0] | a.v[1] | a.v[2] | a.v[3]);
+}
+
 // a + b mod p (inputs canonical).
 inline Fe add(const Fe &a, const Fe &b) {
   Fe r;
@@ -71,6 +76,19 @@ inline Fe add(const Fe &a, const Fe &b) {
   }
   cond_reduce(r);
   return r;
+}
+
+// a - b mod p (inputs canonical): a + (p - b), with p - 0 taken as 0.
+inline Fe sub(const Fe &a, const Fe &b) {
+  if (is_zero(b)) return a;
+  Fe nb;
+  u128 borrow = 0;
+  for (int i = 0; i < 4; ++i) {
+    u128 d = (u128)P[i] - b.v[i] - borrow;
+    nb.v[i] = (u64)d;
+    borrow = (d >> 64) & 1;
+  }
+  return add(a, nb);
 }
 
 // 512-bit product then fold twice by 2^256 = c.
@@ -183,27 +201,74 @@ void starkrt_power_table(const uint8_t *g, u64 n, uint8_t *out) {
   }
 }
 
+// out[i] = a * g^i mod p for i in [0, n): with a = g^start, the rows
+// [start, start + n) of g's power table, so a rank of a sharded proof
+// builds only its own slice.
+void starkrt_geometric(const uint8_t *a, const uint8_t *g, u64 n,
+                       uint8_t *out) {
+  Fe acc = load(a);
+  Fe gg = load(g);
+  for (u64 i = 0; i < n; ++i) {
+    store(out + 32 * i, acc);
+    acc = mul(acc, gg);
+  }
+}
+
+// out[r * cols + c] = g^((row0 + r) * c) for r < rows, c < cols: rows
+// of a power grid (the four-step NTT's twiddles w^(n2 * k1) for one
+// rank's rows n2), one power table per row.
+void starkrt_power_grid(const uint8_t *g, u64 row0, u64 rows, u64 cols,
+                        uint8_t *out) {
+  Fe gg = load(g);
+  Fe e = {{row0, 0, 0, 0}};
+  Fe base = pow_fe(gg, e);
+  for (u64 r = 0; r < rows; ++r) {
+    Fe acc = {{1, 0, 0, 0}};
+    uint8_t *row = out + 32 * r * cols;
+    for (u64 c = 0; c < cols; ++c) {
+      store(row + 32 * c, acc);
+      acc = mul(acc, base);
+    }
+    base = mul(base, gg);
+  }
+}
+
+void starkrt_batch_inv(const uint8_t *a, uint8_t *out, u64 n);
+
+// out[i] = 1 / ((xs[i] - a) * (xs[i] - b)), and 0 where the product is
+// 0 (multi_inv semantics): the inverse of a vanishing polynomial with
+// roots a and b over a table of points (the MiMC prover's 1/Z2). One
+// product per point, then one batch inversion in place.
+void starkrt_inv_vanishing2(const uint8_t *xs, u64 n, const uint8_t *a,
+                            const uint8_t *b, uint8_t *out) {
+  const Fe av = load(a), bv = load(b);
+  for (u64 i = 0; i < n; ++i) {
+    const Fe x = load(xs + 32 * i);
+    store(out + 32 * i, mul(sub(x, av), sub(x, bv)));
+  }
+  starkrt_batch_inv(out, out, n);
+}
+
 // out = base^e mod p (e is a 32-byte LE integer; e.g. p-2 for inversion).
 void starkrt_pow(const uint8_t *base, const uint8_t *e, uint8_t *out) {
   store(out, pow_fe(load(base), load(e)));
 }
 
 // Batch inversion (multi_inv semantics, inv(0) = 0): one pow + 3(n-1) muls.
+// out may be a: the backward pass reads a[i] before it writes out[i].
 void starkrt_batch_inv(const uint8_t *a, uint8_t *out, u64 n) {
   // prefix products, mapping zeros to one
   Fe *pre = new Fe[n + 1];
   pre[0] = {{1, 0, 0, 0}};
   for (u64 i = 0; i < n; ++i) {
     Fe x = load(a + 32 * i);
-    bool z = !(x.v[0] | x.v[1] | x.v[2] | x.v[3]);
-    pre[i + 1] = z ? pre[i] : mul(pre[i], x);
+    pre[i + 1] = is_zero(x) ? pre[i] : mul(pre[i], x);
   }
   Fe pm2 = {{P[0] - 2, P[1], P[2], P[3]}};
   Fe inv_all = pow_fe(pre[n], pm2);
   for (u64 i = n; i-- > 0;) {
     Fe x = load(a + 32 * i);
-    bool z = !(x.v[0] | x.v[1] | x.v[2] | x.v[3]);
-    if (z) {
+    if (is_zero(x)) {
       Fe zero = {{0, 0, 0, 0}};
       store(out + 32 * i, zero);
     } else {

@@ -20,7 +20,12 @@ exists at any size.
   coefficients.
 - `fri_commit`: per round, fold by 4 at the Fiat-Shamir point (round r
   reads round 0's u-table at stride 4^r), then the column tree, the
-  query indices and the column and row bundles.
+  query indices and the column and row bundles. Over a mesh's row
+  shards, one all_to_all_single before each round gives every shard
+  the four quarter slices its columns read (fold4's column i reads rows
+  i + j q, j < 4), so the fold kernel runs on [4 q/s, 8] unchanged,
+  with this shard's slice of the u-table; a column too short to shard
+  (q/s below a leaf pair) is gathered, and the rounds go on replicated.
 
 `lde` and `fri_commit` take a leading claim axis (a [B, steps, 8] trace
 gives B LDEs, and B FRI proofs in one launch of each kernel per round),
@@ -116,27 +121,69 @@ def fri_round_schedule(precision: int, maxdeg_plus_1: int, cutoff: int):
     return out
 
 
-def fri_commit(values, leaf, lvl1, levels, root, fri_inv_pows, schedule,
-               eta, queries: int, exclude: int):
+def _quarter_exchange(values, n: int, mesh):
+    """This shard's rows j * q + [r w, (r + 1) w), j < 4 (q = n/4, w =
+    q/s: the rows its fold4 columns read), in j order, from this
+    shard's rows [n/s, 8] of every shard's: ONE all_to_all_single. Each
+    slice lies in one shard (w divides the shard's 4w rows), shard
+    floor((j s + d) / 4) for the slice j of shard d."""
+    s, r = mesh.n_shard, mesh.shard_index
+    q = n // 4
+    w, rows = q // s, n // s
+
+    def owner(j, d):
+        return (j * q + d * w) // rows
+
+    send, in_splits = [], []
+    for d in range(s):
+        mine = [j for j in range(4) if owner(j, d) == r]
+        send += [values[j * q + d * w - r * rows:][:w] for j in mine]
+        in_splits.append(w * len(mine))
+    out_splits = [w * sum(owner(j, r) == src for j in range(4))
+                  for src in range(s)]
+    return mesh.all_to_all_single(torch.cat(send), in_splits, out_splits)
+
+
+def fri_commit(values, tree, u_table, schedule, eta, queries: int,
+               exclude: int, mesh=None, inv_root: int = None):
     """FRI commit and query phases, one round after another at true
-    shapes. Round 0's row tree is the L tree (leaf, lvl1, levels, root);
-    `fri_inv_pows` is round 0's u-table. Returns (col_roots [R][..., 8],
-    col_bundles [R][..., q, w_c], row_bundles [R][..., 4q, w_r], final
-    values [..., n_final, 8]); the leading axes are the claims'."""
+    shapes, over `values` and their merkle.Tree `tree` (round 0's
+    row tree: the prover's L tree); `u_table` is round 0's u-table.
+    Returns (col_roots [R][..., 8], col_bundles [R][..., q, w_c],
+    row_bundles [R][..., 4q, w_r], final values [..., n_final, 8]); the
+    leading axes are the claims'.
+
+    With `mesh`, `values` [n/s, 8] are this shard's rows (no claim axis),
+    `u_table` this shard's rows [r q/s, (r+1) q/s) of round 0's u-table
+    (round r's columns on this shard read them at stride 4^r), and
+    `inv_root` the inverse of round 0's root of unity (for the rounds
+    that go replicated); the results are the same on every shard."""
+    s = 1 if mesh is None else mesh.n_shard
     col_roots, col_bundles, row_bundles = [], [], []
-    for r, (_, q_r) in enumerate(schedule):
-        sx = td.special_x_limbs(root)
-        column = plimbs.fold4(values, fri_inv_pows, sx, eta, 2 * r)
-        col_leaf = b2.limbs_to_words(column)
-        c_lvl1, c_levels, c_root = merkle.tree_build(col_leaf)
-        ys = td.pseudorandom_indices_dev(c_root, q_r, queries,
+    sharded = True
+    for r, (n_r, q_r) in enumerate(schedule):
+        sx = td.special_x_limbs(tree.root)
+        if sharded and q_r // s >= 2:
+            local = (values if mesh is None
+                     else _quarter_exchange(values, n_r, mesh))
+            column = plimbs.fold4(local, u_table, sx, eta, 2 * r)
+            ctree = merkle.Tree(b2.limbs_to_words(column), mesh)
+        else:
+            if sharded:
+                values = mesh.all_gather(values).reshape(n_r, -1)
+                sharded = False
+            u_r = power_table(pow(inv_root, 4 ** r, MODULUS), q_r,
+                              values.device)
+            column = plimbs.fold4(values, u_r, sx, eta)
+            ctree = merkle.Tree(b2.limbs_to_words(column))
+        ys = td.pseudorandom_indices_dev(ctree.root, q_r, queries,
                                          exclude_multiples_of=exclude)
-        col_bundles.append(merkle.tree_bundle(col_leaf, c_lvl1, c_levels,
-                                              ys))
+        col_bundles.append(ctree.bundle(ys))
         row_idx = (ys[..., None] + q_r * torch.arange(
             4, device=ys.device)).reshape(*ys.shape[:-1], -1)
-        row_bundles.append(merkle.tree_bundle(leaf, lvl1, levels, row_idx))
-        col_roots.append(c_root)
-        values, leaf, lvl1, levels, root = (column, col_leaf, c_lvl1,
-                                            c_levels, c_root)
+        row_bundles.append(tree.bundle(row_idx))
+        col_roots.append(ctree.root)
+        values, tree = column, ctree
+    if sharded and mesh is not None:
+        values = mesh.all_gather(values).reshape(-1, values.shape[-1])
     return col_roots, col_bundles, row_bundles, values

@@ -10,6 +10,17 @@ branches are [leaf, sibling leaf, digest siblings...] bottom-up.
 Every function also takes a leading claim axis: leaves [B, M, W] give B
 trees in the same batched blake2s calls, and bundles take per-claim
 indices [B, K].
+
+`Tree` is the tree the provers commit with. With a mesh
+(parallel/mesh.py) its leaves lie in contiguous row shards: each shard
+builds the subtree over its own leaves, one all_gather gives every
+shard the shard roots, and every shard hashes the top log2(s) levels,
+so every shard holds the same root. A bundle row belongs to the shard
+whose leaves hold its index (a leaf and its sibling idx ^ 1 always lie
+in one shard); that shard fills it from its subtree and the top
+levels, the others give zeros, and one all_reduce (sum) hands every
+shard every row. Over one shard, or with no mesh (one device, any
+claim axis), its bytes are those of `tree_build` and `tree_bundle`.
 """
 
 import numpy as np
@@ -59,6 +70,45 @@ def tree_bundle(leaf_words, lvl1, levels, idx):
         parts.append(_rows(level, node ^ 1))
         node = node >> 1
     return torch.cat(parts, dim=-1)
+
+
+class Tree:
+    """The Merkle tree over leaf words [..., M, W] on one device, or with
+    `mesh` over the [M/s, W] leaves this shard holds of M leaves in s
+    contiguous shards. `root` [..., 8] is the whole tree's, on every
+    shard; `bundle` gives the whole tree's branch bundles."""
+
+    def __init__(self, leaf_words, mesh=None):
+        if leaf_words.shape[-2] < 2:
+            raise ValueError("a shard must hold at least one leaf pair")
+        self.leaf, self.mesh = leaf_words, mesh
+        self.lvl1, self.levels, local_root = tree_build(leaf_words)
+        lead = leaf_words.shape[:-2]
+        roots = (local_root[..., None, :] if mesh is None else
+                 mesh.all_gather(local_root).movedim(0, -2))
+        self.top = [roots]                  # [..., s, 8] up to [..., 1, 8]
+        while self.top[-1].shape[-2] > 1:
+            cur = self.top[-1]
+            self.top.append(b2.blake2s_words(
+                cur.reshape(*lead, cur.shape[-2] // 2, 16), 64))
+        self.root = self.top[-1][..., 0, :]
+
+    def bundle(self, idx):
+        """`tree_bundle` of the whole tree at int64 indices [..., K],
+        on every shard."""
+        if self.mesh is None:
+            return tree_bundle(self.leaf, self.lvl1, self.levels, idx)
+        m_loc, r = self.leaf.shape[-2], self.mesh.shard_index
+        owner = idx // m_loc
+        mine = owner == r
+        local = torch.where(mine, idx - r * m_loc, 0)
+        parts = [tree_bundle(self.leaf, self.lvl1, self.levels, local)]
+        node = owner
+        for level in self.top[:-1]:
+            parts.append(_rows(level, node ^ 1))
+            node = node >> 1
+        rows = torch.cat(parts, dim=-1)
+        return self.mesh.all_reduce(rows * mine[..., None])
 
 
 def bundle_to_branches(bundle_np, leaf_width_words: int) -> list:

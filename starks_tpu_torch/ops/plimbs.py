@@ -313,12 +313,15 @@ def scale(x, s, acc=None):
 
 # -- A4: constraint / quotient / boundary map ---------------------------
 
-def db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+def db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int,
+                 halo=None):
     n = p.shape[-2]
     i = torch.arange(n, device=p.device)
     pl = L16(p)
     x = L16(xs)
-    c = fl.sub16(fl.sub16(L16(torch.roll(p, -shift, -2)), fl.cube16(pl)),
+    ahead = (torch.roll(p, -shift, -2) if halo is None else
+             torch.cat([p[..., shift:, :], halo], dim=-2))
+    c = fl.sub16(fl.sub16(L16(ahead), fl.cube16(pl)),
                  L16(k_tab)[i % k_tab.shape[0]])
     d = fl.mul16(fl.mul16(c, fl.sub16(x, L16(last))),
                  L16(zni_tab)[i % zni_tab.shape[0]])
@@ -328,7 +331,8 @@ def db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
     return fl.from_limbs16(d), fl.from_limbs16(b)
 
 
-def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
+def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int,
+           halo=None):
     """The fused D/B map over the evaluation domain:
       C = P(g1 x) - P^3 - K;  D = C * (x - last) * Znum^-1;
       B = (P - (ia + slope*x)) * Z2^-1,
@@ -337,6 +341,10 @@ def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
     ext) read modulo it, and last, slope, ia scalars [8]. Returns (D, B).
     With a claim axis, P is [B, n, 8] and slope and ia are [B, 8] (each
     claim's boundary line); xs, the tables, 1/Z2 and last are shared.
+    On one shard of a sharded domain, `halo` ([shift, 8], or [B, shift,
+    8]) holds the next shard's first `shift` elements, which P(g1 x)
+    reads past the end of p: p[i + shift] for i + shift < n, else
+    halo[i + shift - n]. P is never copied or rolled.
 
     Replaces `_db_kernel` (starks_tpu/ops/plimbs.py:181, launched by
     `db_map_t`, :418). The kernel reads P(g1 x) by offset, so the rolled
@@ -353,17 +361,21 @@ def db_map(p, xs, k_tab, zni_tab, iz2, last, slope, ia, shift: int):
     _check_per_claim(p, "slope and ia", slope, ia)
     if not 0 <= shift < n:
         raise ValueError("shift out of range")
+    if halo is not None and halo.shape != (*p.shape[:-2], shift,
+                                           NUM_WORDS):
+        raise ValueError(f"halo must be [{shift}, 8] per claim")
     _check_tables(k_tab, zni_tab)
     for t in (k_tab, zni_tab):
         if t.shape[0] & (t.shape[0] - 1):
             raise ValueError("K and Znum^-1 tables must have power-of-two "
                              "length")
-    if not _on_card(p, xs, k_tab, zni_tab, iz2, last, slope, ia):
+    if not _on_card(p, xs, k_tab, zni_tab, iz2, last, slope, ia, halo):
         return db_map_plain(p, xs, k_tab, zni_tab, iz2, last, slope, ia,
-                            shift)
+                            shift, halo)
     d, b = torch.empty_like(p), torch.empty_like(p)
-    _launch("db_map", p.device, p, xs, k_tab, k_tab.shape[0], zni_tab,
-            zni_tab.shape[0], iz2, last, slope, ia, d, b, n, shift, batch)
+    _launch("db_map", p.device, p, halo, xs, k_tab, k_tab.shape[0],
+            zni_tab, zni_tab.shape[0], iz2, last, slope, ia, d, b, n, shift,
+            batch)
     return d, b
 
 

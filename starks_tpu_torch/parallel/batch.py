@@ -4,6 +4,9 @@
 Proofs are independent, so data parallelism is at the process level:
 under `torch.distributed`, each process proves the contiguous slice of
 the batch its rank owns (`local_slice`), and only proof bytes leave it.
+With a mesh (parallel/mesh.py), the slices go to the mesh's batch rows,
+and each row proves its claims one by one, each sharded over the row's
+ranks, as `starks_tpu/parallel/batch.py` does.
 Within a process, chunks of claims run through the claim-axis prover
 (`prover.mk_mimc_proof_batch_fused`: one pass of the kernels per chunk,
 chunk i+1 queued before chunk i is assembled on the host), with resume
@@ -51,11 +54,22 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
     raised; the failure is logged, never swallowed) or rejected is
     proved alone through `prover.mk_mimc_proof_with_trace`, with up to
     `max_retries` more attempts (proofs are deterministic, so recovery
-    is a re-run). `device` as in `prover.mk_mimc_proof`; `mesh` (the
-    sharded prover) is not ported yet."""
+    is a re-run). `device` as in `prover.mk_mimc_proof`.
+
+    With `mesh` (a parallel.mesh.Mesh), the batch row of the mesh owns a
+    contiguous slice of the claims (`local_slice` over the batch axis),
+    and each of them is proved over the row's shards through
+    `prover.mk_mimc_proof_with_trace(mesh=...)`; every rank of a row
+    returns the row's proofs. A proof that fails self-verification fails
+    it on every rank of the row (its bytes are the same on each), so the
+    row retries it together; an exception inside a sharded proof is
+    raised, not retried."""
     if mesh is not None:
-        raise NotImplementedError("the sharded (mesh) path is not ported")
-    local_inputs = list(inputs)[local_slice(len(inputs))]
+        prover._check_mesh(mesh, device)
+        owned = local_slice(len(inputs), mesh.batch_index, mesh.n_batch)
+    else:
+        owned = local_slice(len(inputs))
+    local_inputs = list(inputs)[owned]
     if not local_inputs:
         return []
 
@@ -89,10 +103,10 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
                     results[i] = stored
     pending = [i for i in range(len(local_inputs)) if i not in results]
 
-    # Bulk path: traces come from the native runtime one chunk at a
-    # time inside the bulk prover (the whole batch's traces would be
-    # gigabytes of host memory at 2^20 steps).
-    if len(pending) > 1:
+    # Bulk path (one device): traces come from the native runtime one
+    # chunk at a time inside the bulk prover (the whole batch's traces
+    # would be gigabytes of host memory at 2^20 steps).
+    if mesh is None and len(pending) > 1:
         try:
             got = prover.mk_mimc_proof_batch_fused(
                 [local_inputs[i] for i in pending], steps, round_constants,
@@ -115,8 +129,14 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
         for _ in range(max_retries + 1):
             try:
                 cand = prover.mk_mimc_proof_with_trace(
-                    inp, steps, round_constants, trace, device=device)
+                    inp, steps, round_constants, trace, mesh=mesh,
+                    device=device)
             except Exception as e:           # a transient device fault
+                if mesh is not None:
+                    # The row's other ranks may still be inside this
+                    # proof's collectives: a rank that started again
+                    # alone would pair its calls with theirs.
+                    raise
                 last_err = e
                 continue
             if check_one(inp, cand):

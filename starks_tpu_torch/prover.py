@@ -1,10 +1,11 @@
 """MiMC STARK prover on PyTorch and CUDA.
 
-Port of the single-device paths of `starks_tpu/prover.py`
-(`mk_mimc_proof` -> `_prove_from_trace_fused` -> `post_trace_pl`, and
-the batch prover `mk_mimc_proof_batch_fused`, which vmaps that core over
-a claim axis). The pipeline is identical in math and transcript bytes
-(SURVEY.md §4.1):
+Port of `starks_tpu/prover.py`: the single-device paths (`mk_mimc_proof`
+-> `_prove_from_trace_fused` -> `post_trace_pl`, and the batch prover
+`mk_mimc_proof_batch_fused`, which vmaps that core over a claim axis),
+the mesh path (`mk_mimc_proof_with_trace(mesh=...)`) and
+`prove_low_degree`. The pipeline is identical in math and transcript
+bytes (SURVEY.md §4.1):
 
   host trace (native runtime) -> LDE (DIF kernel, 1/n in its last
   stage; DIT kernel) -> D/B map kernel -> commit P||D||B -> Fiat-Shamir
@@ -19,6 +20,12 @@ bundles are derived on the device (ops/transcript_dev.py,
 ops/merkle.py), so nothing waits on the host until the final copy.
 Proofs equal `oracle.stark.mk_mimc_proof` byte for byte
 (tests/test_torch_prover.py, tests/test_torch_batch.py).
+
+The sharded prover (`_prove_sharded`) runs the same steps over a mesh's
+row shards: the LDE as two four-step NTTs, the D/B map with the next
+shard's rows as its halo, and the trees and FRI rounds over the shards
+(`merkle.Tree`, `fused.fri_commit`); each rank's set-up holds
+only its rows of the domain tables (tests/test_torch_parallel.py).
 """
 
 import math
@@ -34,8 +41,11 @@ from .ops import fused
 from .ops import merkle
 from .ops import plimbs
 from .ops import transcript_dev as td
+from .parallel import ntt4step
+from .parallel.mesh import Mesh
 from .transcript import is_a_power_of_2
 from .utils import hostfield as hf
+from .utils import native
 from .utils.conversions import (NUM_WORDS, digest_words_to_bytes,
                                 int_to_tensor, ints_to_tensor)
 
@@ -95,9 +105,8 @@ class _FusedSetup:
         self.G1, self.G2 = G1, G2
         self.schedule = fused.fri_round_schedule(
             precision, steps * 2, config.fri_base_cutoff)
-        self.plan = fused.FusedPlan(steps, precision, G1, G2, device)
-
         last = pow(G2, (steps - 1) * ext, MODULUS)
+        self._tables(last)
         h = pow(G2, steps, MODULUS)
         self.islope = hf.inv(last - 1)
         self.last_l = int_to_tensor(last, device)
@@ -106,13 +115,16 @@ class _FusedSetup:
         self.h_pows = ints_to_tensor(
             [pow(h, i, MODULUS) for i in range(ext)], device)
         self.eta_l = int_to_tensor(pow(G2, precision // 4, MODULUS), device)
-
-        # 1/Z2 with Z2(x) = (x - 1)(x - last): a constant of the config,
-        # inverted once on the host (zeros map to zero).
-        self.inv_z2 = ints_to_tensor(
-            hf.multi_inv([(x - 1) * (x - last) % MODULUS
-                          for x in fused.powers(G2, precision)]), device)
         self._kext = {}
+
+    def _tables(self, last: int):
+        # 1/Z2 with Z2(x) = (x - 1)(x - last): a constant of the config,
+        # built by the native runtime from the plan's power table (zeros
+        # map to zero).
+        self.plan = fused.FusedPlan(self.steps, self.precision, self.G1,
+                                    self.G2, self.device)
+        self.inv_z2 = torch.from_numpy(native.inv_vanishing2(
+            self.plan.xs_big.cpu().numpy(), 1, last)).to(self.device)
 
     @classmethod
     def get(cls, steps: int, config: StarkConfig, device) -> "_FusedSetup":
@@ -133,6 +145,49 @@ class _FusedSetup:
             self._kext[key] = ints_to_tensor(
                 [x % MODULUS for x in k_ext], self.device)
         return self._kext[key]
+
+
+class _ShardedSetup(_FusedSetup):
+    """One shard's set-up for a sharded proof over `mesh`: the scalars of
+    `_FusedSetup`, the four-step plans of the trace and evaluation
+    domains, and only this shard's rows of the domain tables (x, 1/Z2,
+    the FRI u-table), built by the native runtime."""
+
+    def __init__(self, steps: int, config: StarkConfig, mesh):
+        self.mesh = mesh
+        super().__init__(steps, config, mesh.device)
+
+    def _tables(self, last: int):
+        mesh, dev = self.mesh, self.device
+        s, r = mesh.n_shard, mesh.shard_index
+        n, q = self.precision, self.precision // 4
+        rows = n // s
+        self.offset = r * rows
+        self.plan_trace = ntt4step.get_plan(self.steps, self.G1, mesh)
+        self.plan_lde = ntt4step.get_plan(n, self.G2, mesh)
+        xs = native.power_slice(self.G2, self.offset, rows)
+        self.xs = torch.from_numpy(xs).to(dev)
+        self.inv_z2 = torch.from_numpy(
+            native.inv_vanishing2(xs, 1, last)).to(dev)
+        # Round 0's u-table rows [r q/s, (r+1) q/s): every round's
+        # columns on this shard read them at stride 4^round.
+        self.inv_g2 = hf.inv(self.G2)
+        self.u_local = torch.from_numpy(native.power_slice(
+            self.inv_g2, r * (q // s), q // s)).to(dev)
+
+    @classmethod
+    def get(cls, steps: int, config: StarkConfig, mesh) -> "_ShardedSetup":
+        key = ("mimc set-up", steps, config)
+        if key not in mesh.cache:
+            mesh.cache[key] = cls(steps, config, mesh)
+        return mesh.cache[key]
+
+    def k_ext(self, round_constants):
+        """K from this shard's first row on: the table rolled by the
+        shard's offset, so the kernel's local row i reads K at the
+        domain's row offset + i."""
+        k = super().k_ext(round_constants)
+        return torch.roll(k, -(self.offset % k.shape[0]), 0)
 
 
 def _prove_sections(su: _FusedSetup, trace, k_ext, inps, outputs,
@@ -159,56 +214,101 @@ def _prove_sections(su: _FusedSetup, trace, k_ext, inps, outputs,
     timer.mark("constraints/quotient/boundary")
 
     # 8. Commit #1: 96-byte P||D||B leaves.
-    m_leaf = torch.cat([b2.limbs_to_words(p), b2.limbs_to_words(d),
-                        b2.limbs_to_words(b)], dim=-1)
-    m_lvl1, m_levels, m_root = merkle.tree_build(m_leaf)
+    m_tree = merkle.Tree(torch.cat(
+        [b2.limbs_to_words(p), b2.limbs_to_words(d), b2.limbs_to_words(b)],
+        dim=-1))
     timer.mark("merkle #1 (P||D||B)")
 
     # 9. Fiat-Shamir weights and the linear combination.
-    k1, k2, k3, k4 = (td.challenge_limbs(m_root, j) for j in (1, 2, 3, 4))
-    cp = td.lincomb_coeffs(k1, k2, su.h_pows)
-    cb = td.lincomb_coeffs(k3, k4, su.h_pows)
-    l_vals = plimbs.l_map(d, p, b, cp, cb)
-    return _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
-                           timer)
+    return _query_sections(su, m_tree, _l_map(su, m_tree, d, p, b), timer)
 
 
-def _query_sections(su, m_leaf, m_lvl1, m_levels, m_root, l_vals,
-                    timer: _StageTimer):
-    """Steps 10-12, shared by the MiMC and the AIR proof: commit L, the
-    spot-check bundles (main tree at x and g1 x, L tree at x), and FRI on
-    L. `su` is either proof's setup; the arrays may carry a leading
-    claim axis. Returns the named sections, as int64 word tensors on the
-    device."""
+def _l_map(su, m_tree, d, p, b):
+    """Step 9: the Fiat-Shamir weights from the main root, and L."""
+    k1, k2, k3, k4 = (td.challenge_limbs(m_tree.root, j)
+                      for j in (1, 2, 3, 4))
+    return plimbs.l_map(d, p, b, td.lincomb_coeffs(k1, k2, su.h_pows),
+                        td.lincomb_coeffs(k3, k4, su.h_pows))
+
+
+def _query_sections(su, m_tree, l_vals, timer: _StageTimer, mesh=None):
+    """Steps 10-12, shared by the MiMC proof (on one device or over a
+    mesh) and the AIR proof: commit L, the spot-check bundles (main tree
+    at x and g1 x, L tree at x), and FRI on L. `su` is the proof's
+    setup; on one device the arrays may carry a leading claim axis, over
+    `mesh` they are this shard's rows. Returns the named sections, as
+    int64 word tensors on the device."""
     cfg, precision, ext = su.config, su.precision, su.ext
 
     # 10. Commit #2.
-    l_leaf = b2.limbs_to_words(l_vals)
-    l_lvl1, l_levels, l_root = merkle.tree_build(l_leaf)
+    l_tree = merkle.Tree(b2.limbs_to_words(l_vals), mesh)
     timer.mark("linear combination + merkle #2")
 
     # 11. Spot checks.
     positions = td.pseudorandom_indices_dev(
-        l_root, precision, cfg.spot_checks, exclude_multiples_of=ext)
+        l_tree.root, precision, cfg.spot_checks, exclude_multiples_of=ext)
     aug = torch.stack([positions, (positions + ext) % precision],
                       dim=-1).reshape(*positions.shape[:-1], -1)
-    main_bundle = merkle.tree_bundle(m_leaf, m_lvl1, m_levels, aug)
-    lc_bundle = merkle.tree_bundle(l_leaf, l_lvl1, l_levels, positions)
+    main_bundle, lc_bundle = m_tree.bundle(aug), l_tree.bundle(positions)
     timer.mark("spot-check bundles")
 
     # 12. FRI on L (deg < 2*steps), reusing the L tree.
-    col_roots, col_bs, row_bs, final = fused.fri_commit(
-        l_vals, l_leaf, l_lvl1, l_levels, l_root, su.plan.fri_inv_pows,
-        su.schedule, su.eta_l, cfg.fri_queries, ext)
+    if mesh is None:
+        fri = fused.fri_commit(l_vals, l_tree, su.plan.fri_inv_pows,
+                               su.schedule, su.eta_l, cfg.fri_queries, ext)
+    else:
+        fri = fused.fri_commit(l_vals, l_tree, su.u_local, su.schedule,
+                               su.eta_l, cfg.fri_queries, ext, mesh,
+                               su.inv_g2)
     timer.mark("fri")
+    return [("m_root", m_tree.root), ("l_root", l_tree.root),
+            ("main_bundle", main_bundle), ("lc_bundle", lc_bundle)] + \
+        _fri_sections(*fri)
 
-    sections = [("m_root", m_root), ("l_root", l_root),
-                ("main_bundle", main_bundle), ("lc_bundle", lc_bundle)]
+
+def _fri_sections(col_roots, col_bs, row_bs, final):
+    sections = []
     for r, (cr, cbnd, rbnd) in enumerate(zip(col_roots, col_bs, row_bs)):
         sections += [(f"col_root{r}", cr), (f"col_b{r}", cbnd),
                      (f"row_b{r}", rbnd)]
     sections.append(("base_words", b2.limbs_to_words(final)))
     return sections
+
+
+def _prove_sharded(su: _ShardedSetup, trace, k_ext, inp: int, output: int,
+                   timer: _StageTimer):
+    """The device part of one proof over `su.mesh` (the JAX package's
+    mesh path, `starks_tpu/prover.py:206-379`): `trace` this shard's
+    [steps/s, 8] rows on the device. Every array of the evaluation
+    domain stays in contiguous row shards; the sections returned (no
+    claim axis) are the same on every shard."""
+    mesh, cfg, ext, n = su.mesh, su.config, su.ext, su.precision
+
+    # 2-3. LDE: inverse four-step over the trace, zero-pad (all nonzero
+    # coefficients come to shard 0), forward four-step.
+    coeffs = ntt4step.fourstep_ntt(trace, su.plan_trace, inverse=True)
+    p = ntt4step.fourstep_ntt(ntt4step.zero_pad(coeffs, n, mesh),
+                              su.plan_lde)
+    timer.mark("lde")
+
+    # 5-7. The D/B map on this shard; P(g1 x) past its end reads the next
+    # shard's first ext rows (the halo).
+    slope = (output - inp) * su.islope % MODULUS
+    d, b = plimbs.db_map(
+        p, su.xs, k_ext, su.zni8, su.inv_z2, su.last_l,
+        int_to_tensor(slope, su.device),
+        int_to_tensor((inp - slope) % MODULUS, su.device), ext,
+        halo=mesh.halo(p, ext))
+    timer.mark("constraints/quotient/boundary")
+
+    # 8-12. Commit P||D||B, the weights and L, then steps 10-12 over the
+    # shards.
+    m_tree = merkle.Tree(torch.cat(
+        [b2.limbs_to_words(p), b2.limbs_to_words(d), b2.limbs_to_words(b)],
+        dim=-1), mesh)
+    timer.mark("merkle #1 (P||D||B)")
+    return _query_sections(su, m_tree, _l_map(su, m_tree, d, p, b), timer,
+                           mesh)
 
 
 def _upload(host, device):
@@ -248,20 +348,25 @@ def _prep_section(name: str, arr: np.ndarray, main_leaf_words: int):
     return merkle.bundle_to_branches(arr, 8)        # lc, col and row
 
 
-def _assemble_prepped(pre: dict, rounds: int):
-    """Reference-shaped proof object (SURVEY §A.8) from prepped sections."""
+def _assemble_fri(pre: dict, rounds: int):
+    """Reference-shaped FRI proof (SURVEY §A.6) from prepped sections."""
     fri_proof = []
     for r in range(rounds):
         col, row = pre[f"col_b{r}"], pre[f"row_b{r}"]
         branches = [[col[i]] + row[4 * i:4 * i + 4] for i in range(len(col))]
         fri_proof.append([pre[f"col_root{r}"], branches])
     fri_proof.append(pre["base_words"])
+    return fri_proof
+
+
+def _assemble_prepped(pre: dict, rounds: int):
+    """Reference-shaped proof object (SURVEY §A.8) from prepped sections."""
     return [pre["m_root"], pre["l_root"], pre["main_bundle"],
-            pre["lc_bundle"], fri_proof]
+            pre["lc_bundle"], _assemble_fri(pre, rounds)]
 
 
 def _finish_fetch(fetch, main_leaf_words: int, rounds: int,
-                  timer: _StageTimer):
+                  timer: _StageTimer, assemble=_assemble_prepped):
     """Wait for a fetch, then assemble each claim's proof on the host,
     in claim order."""
     host, done, layout = fetch
@@ -277,18 +382,19 @@ def _finish_fetch(fetch, main_leaf_words: int, rounds: int,
             pre[name] = _prep_section(name, row[off:off + size].reshape(shape),
                                       main_leaf_words)
             off += size
-        proofs.append(_assemble_prepped(pre, rounds))
+        proofs.append(assemble(pre, rounds))
     timer.mark("proof assembly")
     timer.finish()
     return proofs
 
 
 def _finish_proof(sections, main_leaf_words: int, rounds: int,
-                  timer: _StageTimer):
+                  timer: _StageTimer, assemble=_assemble_prepped):
     """One device-to-host copy of one proof's sections (no claim axis),
     then the host assembly of the reference-shaped proof."""
     fetch = _start_fetch([(name, t[None]) for name, t in sections])
-    return _finish_fetch(fetch, main_leaf_words, rounds, timer)[0]
+    return _finish_fetch(fetch, main_leaf_words, rounds, timer,
+                         assemble)[0]
 
 
 def _check_claim(steps: int, round_constants, config: StarkConfig):
@@ -322,17 +428,38 @@ def _prove_chunk(su: _FusedSetup, k_ext, inps, traces, timer: _StageTimer):
     return _start_fetch(sections)
 
 
+def _check_mesh(mesh, device):
+    """The mesh's device, after checking `mesh` is a Mesh and `device`
+    (when given) is its device."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, not "
+                        f"{type(mesh).__name__}")
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    return mesh.device
+
+
 def _prove_one(inp: int, steps: int, round_constants, make_trace, mesh,
                config: StarkConfig, device, timings):
-    """One proof, the B = 1 case of the claim-axis prover, from the host
-    trace `make_trace()` returns."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded (mesh) path is not ported")
-    device = _resolve_device(device)
+    """One proof from the host trace `make_trace()` returns: the B = 1
+    case of the claim-axis prover, or with `mesh` the sharded prover."""
+    device = (_resolve_device(device) if mesh is None
+              else _check_mesh(mesh, device))
     _check_claim(steps, round_constants, config)
     timer = _StageTimer(timings, device)
     trace = make_trace()
     timer.mark("host trace")
+    if mesh is not None:
+        su = _ShardedSetup.get(steps, config, mesh)
+        rows = steps // mesh.n_shard
+        mine = trace[mesh.shard_index * rows:][:rows]
+        local = _upload(torch.from_numpy(np.ascontiguousarray(mine)), device)
+        timer.mark("setup + trace upload")
+        sections = _prove_sharded(
+            su, local, su.k_ext(round_constants), inp % MODULUS,
+            int.from_bytes(trace[-1].tobytes(), "little"), timer)
+        return _finish_proof(sections, 3 * NUM_WORDS, len(su.schedule),
+                             timer)
     su = _FusedSetup.get(steps, config, device)
     fetch = _prove_chunk(su, su.k_ext(round_constants), [inp % MODULUS],
                          [trace], timer)
@@ -349,7 +476,13 @@ def mk_mimc_proof(inp: int, steps: int, round_constants, mesh=None,
     the prover never falls back to the CPU on its own. `device="cpu"`
     runs the plain PyTorch versions of the kernels. Pass a dict as
     `timings` to receive per-stage seconds (each stage waits for the
-    device). `mesh` (the sharded path) is not ported yet."""
+    device).
+
+    With `mesh` (a parallel.mesh.Mesh; every rank of its shard row calls
+    this with the same claim), the proof runs sharded over the row's
+    ranks, each on its mesh device with its contiguous rows of the
+    evaluation domain (`_prove_sharded`), and every rank returns the
+    same proof, byte-identical to the single-device one."""
     return _prove_one(
         inp, steps, round_constants,
         lambda: mimc_model.trace_limbs(inp, steps, round_constants), mesh,
@@ -369,8 +502,8 @@ def mk_mimc_proof_with_trace(inp: int, steps: int, round_constants, trace,
     the verifier rejects. (The reference's mesh=None path uploads every
     K-th row and regenerates the others from the recurrence, so it
     proves the consistent trace through those rows instead; that upload
-    scheme works around its runtime and is not ported.) `mesh` is not
-    ported yet; `device` and `timings` as in `mk_mimc_proof`."""
+    scheme works around its runtime and is not ported.) `mesh`,
+    `device` and `timings` as in `mk_mimc_proof`."""
     return _prove_one(inp, steps, round_constants,
                       lambda: _trace_array(trace, steps), mesh, config,
                       device, timings)
@@ -415,3 +548,51 @@ def mk_mimc_proof_batch_fused(inps, steps: int, round_constants,
         proofs += _finish_fetch(pending, 3 * NUM_WORDS, len(su.schedule),
                                 timer)
     return proofs
+
+
+def prove_low_degree(values, root_of_unity: int, maxdeg_plus_1: int,
+                     exclude_multiples_of: int = 0,
+                     config: StarkConfig = REFERENCE, mesh=None,
+                     device=None):
+    """FRI proof that `values` (a list of ints, or an [n, 8] int32 array
+    or tensor in the port's layout: the evaluations over the powers of
+    `root_of_unity`, of order n) have degree below `maxdeg_plus_1`: the
+    reference-shaped proof of `oracle.fri.prove_low_degree`, byte for
+    byte, checked by `verifier.verify_low_degree_proof` against the
+    Merkle root of the values. The counterpart of JAX
+    `prover.prove_low_degree` (`_fri_device` on one device).
+
+    Runs on one device (`device` as in `mk_mimc_proof`), or with `mesh`
+    over the mesh's shards, each holding its contiguous rows of the
+    values (`fused.fri_commit`); every shard returns the proof.
+    """
+    if mesh is None:
+        device = _resolve_device(device)
+    else:
+        device = _check_mesh(mesh, device)
+    if isinstance(values, (list, tuple)):
+        values = ints_to_tensor([x % MODULUS for x in values])
+    values = torch.as_tensor(values).to(torch.int32)
+    n = values.shape[0]
+    if values.shape != (n, NUM_WORDS) or n & (n - 1):
+        raise ValueError(f"values of shape {tuple(values.shape)}: expected "
+                         f"[n, 8] with n a power of two")
+    if maxdeg_plus_1 <= config.fri_base_cutoff:
+        raw = values.cpu().numpy().astype("<u4").tobytes()
+        return [[int.from_bytes(raw[i:i + 32], "little").to_bytes(32, "big")
+                 for i in range(0, len(raw), 32)]]
+    schedule = fused.fri_round_schedule(n, maxdeg_plus_1,
+                                        config.fri_base_cutoff)
+    eta = int_to_tensor(pow(root_of_unity, n // 4, MODULUS), device)
+    inv_root = hf.inv(root_of_unity)
+    s, r = (1, 0) if mesh is None else (mesh.n_shard, mesh.shard_index)
+    rows, q = n // s, n // 4
+    vals = _upload(values[r * rows:(r + 1) * rows].contiguous(), device)
+    u_table = torch.from_numpy(native.power_slice(
+        inv_root, r * (q // s), q // s)).to(device)
+    fri = fused.fri_commit(
+        vals, merkle.Tree(b2.limbs_to_words(vals), mesh), u_table,
+        schedule, eta, config.fri_queries, exclude_multiples_of, mesh,
+        inv_root)
+    return _finish_proof(_fri_sections(*fri), NUM_WORDS, len(schedule),
+                         _StageTimer(None, device), _assemble_fri)

@@ -31,6 +31,9 @@ _N = ctypes.c_uint64
 SIGNATURES = {
     "starkrt_mimc_trace": [_P, _N, _P, _N, _P],
     "starkrt_power_table": [_P, _N, _P],
+    "starkrt_geometric": [_P, _P, _N, _P],
+    "starkrt_power_grid": [_P, _N, _N, _N, _P],
+    "starkrt_inv_vanishing2": [_P, _N, _P, _P, _P],
     "starkrt_batch_inv": [_P, _P, _N],
     "starkrt_ntt": [_P, _P, _N, _P],
 }
@@ -105,6 +108,35 @@ def power_table(g: int, n: int) -> np.ndarray:
     base = _elems([g])
     out = np.empty((n, 8), np.int32)
     load().starkrt_power_table(base.ctypes.data, n, out.ctypes.data)
+    return out
+
+
+def power_slice(g: int, start: int, n: int) -> np.ndarray:
+    """[n, 8] int32 rows start .. start + n - 1 of g's power table."""
+    base, gg = _elems([pow(g, start, MODULUS)]), _elems([g])
+    out = np.empty((n, 8), np.int32)
+    load().starkrt_geometric(base.ctypes.data, gg.ctypes.data, n,
+                             out.ctypes.data)
+    return out
+
+
+def power_grid(g: int, row0: int, rows: int, cols: int) -> np.ndarray:
+    """[rows, cols, 8] int32 grid of g^((row0 + r) * c)."""
+    gg = _elems([g])
+    out = np.empty((rows, cols, 8), np.int32)
+    load().starkrt_power_grid(gg.ctypes.data, row0, rows, cols,
+                              out.ctypes.data)
+    return out
+
+
+def inv_vanishing2(xs: np.ndarray, a: int, b: int) -> np.ndarray:
+    """1 / ((x - a)(x - b)) for each x of an [n, 8] int32 array (zero
+    where the product is zero, as `hostfield.multi_inv`)."""
+    xs = np.ascontiguousarray(xs, dtype=np.int32)
+    av, bv = _elems([a]), _elems([b])
+    out = np.empty_like(xs)
+    load().starkrt_inv_vanishing2(xs.ctypes.data, xs.shape[0], av.ctypes.data,
+                                  bv.ctypes.data, out.ctypes.data)
     return out
 
 

@@ -93,13 +93,18 @@ def test_with_trace_proves_an_inconsistent_trace_verbatim():
 
 
 def test_with_trace_rejects_bad_shapes_and_mesh():
+    """A trace of the wrong shape is refused, and so is a `mesh` that is
+    not a parallel.mesh.Mesh, by the per-claim entry point and by
+    prove_batch (the sharded path itself: tests/test_torch_parallel.py)."""
     trace = mimc.trace_limbs(3, STEPS, CONSTS)
     with pytest.raises(ValueError):
         stt.mk_mimc_proof_with_trace(3, STEPS, CONSTS, trace[:-1],
                                      device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         stt.mk_mimc_proof_with_trace(3, STEPS, CONSTS, trace, mesh=object(),
                                      device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        stt.prove_batch([3, 4], STEPS, CONSTS, mesh=object(), device="cpu")
 
 
 def test_local_slice():

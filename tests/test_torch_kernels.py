@@ -390,7 +390,7 @@ def _host_cases():
                      [x, tab], [n, 3, 0, 1], (n, 8), (n, 8)),
         "scale": (plimbs.scale_plain(x, s1), [x, s1, None], [n], (n, 8)),
         "db_map": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
-                   [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8, 1],
+                   [p, None, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8, 1],
                    (n, 8), (n, 8)),
         "l_map": (plimbs.l_map_plain(d, p, b, cp, cb),
                   [d, p, b, cp, 8, cb, 8], [n, 1], (n, 8)),
@@ -548,8 +548,8 @@ def test_host_db_map_matches_plain_on_structured_values(host_kernels,
     s1, s2, s3 = (ints_to_tensor([v])[0] for v in (M - 1, 2 ** 255, 1))
     want = plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8)
     outs = _host_call(host_kernels, entry,
-                      [p, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8, 1],
-                      [(n, 8), (n, 8)])
+                      [p, None, xs, k, 64, z, 8, iz2, s1, s2, s3],
+                      [n, 8, 1], [(n, 8), (n, 8)])
     assert all(o.equal(w) for o, w in zip(outs, want))
 
 
@@ -654,7 +654,8 @@ def _claim_cases():
         "db_map": (plimbs.db_map,
                    (p, xs, k, z, iz2, s1, slope, ia, 8),
                    (1, 0, 0, 0, 0, 0, 1, 1, 0), "starks_db_map",
-                   [p, xs, k, 64, z, 8, iz2, s1, slope, ia], [n, 8, b],
+                   [p, None, xs, k, 64, z, 8, iz2, s1, slope, ia],
+                   [n, 8, b],
                    [full, full]),
         "l_map": (plimbs.l_map, (d, p, bb, cp, cb), (1, 1, 1, 1, 1),
                   "starks_l_map", [d, p, bb, cp, 8, cb, 8], [n, b],
@@ -698,6 +699,36 @@ def test_claim_axis_kernel_body_matches_plain(host_kernels, name):
     want = want if isinstance(want, tuple) else (want,)
     outs = _host_call(host_kernels, entry, ins, ints, out_shapes)
     assert all(o.equal(w) for o, w in zip(outs, want))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_db_map_halo_shards_equal_whole_domain(host_kernels, shards):
+    """The D/B map over each of `shards` contiguous shards of a domain of
+    CLAIMS claims, with the next shard's first `shift` rows as its halo
+    (cyclically), equals the whole domain's map: the plain version, and
+    the g++ build of the kernel body reading the halo past the shard's
+    end. The K table's period (64) divides the shard."""
+    _, args, *_ = _claim_cases()["db_map"]
+    p, xs, k, z, iz2, last, slope, ia, shift = args
+    n, b = p.shape[-2], p.shape[0]
+    want = plimbs.db_map(p, xs, k, z, iz2, last, slope, ia, shift)
+    rows = n // shards
+    for r in range(shards):
+        part = slice(r * rows, (r + 1) * rows)
+        nxt = (r + 1) % shards * rows
+        halo = p[:, nxt:nxt + shift].contiguous()
+        pr = p[:, part].contiguous()
+        got = plimbs.db_map(pr, xs[part], k, z, iz2[part], last, slope, ia,
+                            shift, halo=halo)
+        outs = _host_call(host_kernels, "starks_db_map",
+                          [pr, halo, xs[part].contiguous(), k, 64, z, 8,
+                           iz2[part].contiguous(), last, slope, ia],
+                          [rows, shift, b], [(b, rows, 8), (b, rows, 8)])
+        for g, o, w in zip(got, outs, want):
+            assert g.equal(w[:, part]) and o.equal(w[:, part])
+    with pytest.raises(ValueError, match="halo"):
+        plimbs.db_map(p, xs, k, z, iz2, last, slope, ia, shift,
+                      halo=p[:, :shift - 1])
 
 
 def test_claim_axis_rejects_mismatched_operands():

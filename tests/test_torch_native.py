@@ -49,6 +49,33 @@ def test_power_table_equals_powers(n):
     assert fused.power_table(g, n).equal(torch.from_numpy(table))
 
 
+@pytest.mark.parametrize("start,n", [(0, 1), (100, 50), (511, 1)])
+def test_power_slice_equals_powers(start, n):
+    g = pow(7, (M - 1) // 512, M)
+    got = native.power_slice(g, start, n)
+    assert tensor_to_ints(torch.from_numpy(got)) == fused.powers(
+        g, start + n)[start:]
+
+
+def test_power_grid_equals_powers():
+    g = pow(7, (M - 1) // 1024, M)
+    got = native.power_grid(g, 5, 3, 16)
+    assert got.shape == (3, 16, 8)
+    assert tensor_to_ints(torch.from_numpy(got.reshape(-1, 8))) == [
+        pow(g, r * c, M) for r in range(5, 8) for c in range(16)]
+
+
+def test_inv_vanishing2_equals_multi_inv():
+    """1/((x - a)(x - b)) over a power table, zero at the roots."""
+    g = pow(7, (M - 1) // 256, M)
+    xs = native.power_table(g, 256)
+    a, b = 1, pow(g, 200, M)
+    got = native.inv_vanishing2(xs, a, b)
+    want = hf.multi_inv([(x - a) * (x - b) % M for x in fused.powers(g, 256)])
+    assert tensor_to_ints(torch.from_numpy(got)) == want
+    assert want[0] == want[200] == 0
+
+
 def test_batch_inv_equals_multi_inv():
     r = random.Random(5)
     xs = [0, 1, M - 1, 2 ** 255] + [r.randrange(M) for _ in range(60)]
