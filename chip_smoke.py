@@ -30,7 +30,15 @@ Phases (any failure exits non-zero and prints no result):
      transform, scale then add against scale with an accumulator, mul by
      a constant (the frame scale had) against scale; cube beside a
      torch copy of the same bytes, and the streaming kernels also under
-     a flush that leaves no dirty lines in L2 and with warm inputs;
+     a flush that leaves no dirty lines in L2 and with warm inputs; the
+     AIR's elementwise kernels (mul, add, sub, scale, cube) over 16
+     claims at 2^19 in the forms the AIR path runs (each operand per
+     claim or shared), each equal to its plain version and to 16
+     one-claim launches, timed beside those launches and the bound that
+     counts a shared operand once; the device MiMC trace
+     (`mimc_trace_kernel`) against its plain version, and
+     `trace_batch_device` of 64 claims at 2^16 steps against the native
+     host trace of each claim, timed beside it;
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
@@ -45,18 +53,27 @@ Phases (any failure exits non-zero and prints no result):
   6. batch proving (config 5): prove_batch of 64 x 2^16 claims, chunk
      16, verified, with a proof store and a resume; claims against
      serial proofs and the oracle; chunks of 16, 4 and 1;
-  7. one more MiMC 2^16 and 2^20 and fib-square 2^13 and 2^16 proof and
-     one batch chunk each under torch.profiler, after all timed proofs:
-     CUDA launches, device busy share against the steady stage-timed
-     wall time, device time of the field kernels;
+  7. one more MiMC 2^16 and 2^20 and fib-square 2^13 and 2^16 proof,
+     one batch chunk and one AIR chunk each under torch.profiler, after
+     all timed proofs: CUDA launches, device busy share against the
+     steady stage-timed wall time, device time of the field kernels, and
+     each field kernel's launches as the profiler lists them beside the
+     port's counters for the same run (a session after the first in a
+     process drops its first launches of the port's kernels, so each
+     profile starts with a primer of its own launches; whatever the
+     profiler still loses is printed, and the busy share is then marked
+     a lower bound);
   8. every kernel's launches on each main path: the steady MiMC 2^16,
-     fib-square 2^13 and 2^16 proofs and the MiMC-as-AIR proof, each
-     counted alone (counts set to 0 just before it, read just after);
-     each kernel > 0 on every path that runs it, no scale launch on the
-     MiMC path (its 1/n is in the DIF transform), and at most two DIF
-     and two DIT pass launches per column;
-     one JSON line of kernel rows, each with the count of its own main
-     path and the counts of every path, and the result line.
+     fib-square 2^13 and 2^16 proofs, the MiMC-as-AIR proof, the batch
+     and AIR chunks and the device trace, each counted alone (counts
+     set to 0 just before it, read just after); each kernel > 0 on
+     every path that runs it, no scale launch on the MiMC path (its 1/n
+     is in the DIF transform), one DIF and one DIT transform for all of
+     a proof's columns, a batch chunk launching each kernel as often as
+     one MiMC 2^16 proof and an AIR chunk as often as one fib-square
+     2^16 proof; one JSON line of kernel rows, each with the count of
+     its own main path and the counts of every path, and the result
+     line.
   9. benchmark config 4 (BASELINE.md:267: 2^20 steps, a 2^23-point
      domain), run after phase 6 and before the profiled proofs: each
      kernel at config 4's shapes against its plain version, timed
@@ -73,7 +90,14 @@ Phases (any failure exits non-zero and prints no result):
      times, each collective's count, bytes sent to other ranks and
      seconds, the transport, and the launches (phase 8 counts both
      paths).
-Phase 8 also requires the config 4 paths to launch only their kernels.
+  10. general AIR proofs over a claim axis (`prove_air_batch_fused`), run
+     after phase 6: 16 fib-square claims at 2^16 steps in one chunk,
+     every claim verified, claims 0 and 15 equal to serial proofs, a
+     changed boundary rejected, stage times, peak memory, proofs/s at
+     chunks of 16, 4 and 1 (4 claims), the host trace per claim; MiMC as
+     an AIR over 4 claims at 2^13, each equal to its serial proof.
+Phase 8 also requires the config 4 paths and the device trace to launch
+only their kernels.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -88,6 +112,7 @@ import sys
 import time
 from pathlib import Path
 
+STARTED = time.perf_counter()
 SEED = 20261016
 CONSTS = [(i ** 7) ^ 42 for i in range(64)]
 INP = 3
@@ -103,6 +128,10 @@ BATCH_CHUNK = 16
 CONFIG4_STEPS = 2 ** 20       # BASELINE.md config 4: 2^20 steps, 2^23 points
 SHARDS = 4                    # config 4's mesh: four ranks, one row
 SHARD_TIMEOUT_S = 600
+AIR_CHUNK = 16                # fib-square claims per AIR batch chunk
+MIMC_AIR_CLAIMS = 4           # MiMC as an AIR over a claim axis
+TRACE_CLAIMS = 64             # the device MiMC trace: claims x BIG_STEPS
+TRACE_CHECK_STEPS = 2 ** 6    # ... against its plain version
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
 # 32-bit integer multiply-adds at 64 per clock per SM (CUDA C++
@@ -139,6 +168,8 @@ REPLACES = {
     "add": "starks_tpu/ops/plimbs.py:279",
     "sub": "starks_tpu/ops/plimbs.py:284",
     "cube": "starks_tpu/ops/plimbs.py:289",
+    # a lax.scan, no Pallas kernel
+    "mimc_trace": "starks_tpu/models/mimc.py:73",
 }
 # The main paths, each counted alone, and the kernels each must launch.
 # A kernel's row reports the count of the first path here that runs it:
@@ -150,6 +181,8 @@ FIB_BIG = f"fib-square {BIG_STEPS}"
 MIMC = f"MiMC {BIG_STEPS}"
 MIMC_AIR = f"MiMC-as-AIR {SMALL_STEPS}"
 BATCH = f"batch chunk of {BATCH_CHUNK} x MiMC {BIG_STEPS}"
+AIR_BATCH = f"AIR chunk of {AIR_CHUNK} x fib-square {BIG_STEPS}"
+TRACE = f"device MiMC trace, {TRACE_CLAIMS} x {BIG_STEPS}"
 MIMC4 = f"MiMC {CONFIG4_STEPS}"
 SHARDED = f"MiMC {{}} over {SHARDS} shards, per rank"
 MIMC4_SHARDED = SHARDED.format(CONFIG4_STEPS)
@@ -158,6 +191,7 @@ MIMC4_SHARDED = SHARDED.format(CONFIG4_STEPS)
 SHARD_KERNELS = ["dif_pass", "mul", "db_map", "l_map", "fold4"]
 PATH_KERNELS = {
     MIMC: NTT_FRI + ["db_map", "l_map"],
+    AIR_BATCH: NTT_FRI + ["scale", "mul", "add", "sub"],
     FIB_BIG: NTT_FRI + ["scale", "mul", "add", "sub"],
     FIB: NTT_FRI + ["scale", "mul", "add", "sub"],
     MIMC_AIR: NTT_FRI + ["scale", "mul", "add", "sub", "cube"],
@@ -165,6 +199,7 @@ PATH_KERNELS = {
     MIMC4: NTT_FRI + ["db_map", "l_map"],
     SHARDED.format(BIG_STEPS): SHARD_KERNELS,
     MIMC4_SHARDED: SHARD_KERNELS,
+    TRACE: ["mimc_trace"],
 }
 
 
@@ -593,6 +628,179 @@ def phase_claims(rows, device):
               flush=True)
 
 
+def elementwise_claim_cases(claims, device, seed):
+    """(name, form, wrapper, plain, args, claimed, bytes, ops) for the
+    AIR's elementwise kernels over `claims` claims at n = 2^19 (a 2^16-step
+    proof's domain), in the forms the AIR path runs: each operand per
+    claim ([B, L, 8], claim 0's led by the structured values) or shared
+    ([L, 8], read by every claim and counted once in the bytes)."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    gen = torch.Generator().manual_seed(seed)
+    n, b = BIG_STEPS * EXT, claims
+    edge = edge_elems(device)
+
+    def per_claim(length):
+        out = torch.stack([rand_elems(length, gen, device)
+                           for _ in range(b)])
+        with_edges(out[0], edge)
+        return out
+
+    x, y, acc = per_claim(n), per_claim(n), per_claim(n)
+    tab_c, one_c = per_claim(EXT), per_claim(1)   # weights, i_ev constant
+    shared, tab_s = rand_elems(n, gen, device), rand_elems(EXT, gen, device)
+    s_c = rand_elems(b, gen, device)              # each claim's scalar
+    full = ELEM * b * n
+    mul_ops, add_ops = b * n * OPS_MUL, b * n * OPS_ADD
+    return [
+        ("mul", "column x column", plimbs.mul, plimbs.mul_plain, (x, y),
+         (1, 1), 3 * full, mul_ops),
+        ("mul", "column x shared column (x - last)", plimbs.mul,
+         plimbs.mul_plain, (x, shared), (1, 0), 2 * full + ELEM * n,
+         mul_ops),
+        ("mul", "column x claim's 8-periodic weights", plimbs.mul,
+         plimbs.mul_plain, (x, tab_c), (1, 1), 2 * full + ELEM * EXT * b,
+         mul_ops),
+        ("mul", "column x shared 8-periodic 1/Znum", plimbs.mul,
+         plimbs.mul_plain, (x, tab_s), (1, 0), 2 * full + ELEM * EXT,
+         mul_ops),
+        ("add", "column + column", plimbs.add, plimbs.add_plain, (x, y),
+         (1, 1), 3 * full, add_ops),
+        ("sub", "column - column", plimbs.sub, plimbs.sub_plain, (x, y),
+         (1, 1), 3 * full, add_ops),
+        ("sub", "column - claim's constant", plimbs.sub, plimbs.sub_plain,
+         (x, one_c), (1, 1), 2 * full + ELEM * b, add_ops),
+        ("scale", "shared basis x claim's boundary value", plimbs.scale,
+         plimbs.scale_plain, (shared, s_c), (0, 1), full + ELEM * (n + b),
+         mul_ops),
+        ("scale", "acc + shared basis x claim's value", plimbs.scale,
+         plimbs.scale_plain, (shared, s_c, acc), (0, 1, 1),
+         2 * full + ELEM * (n + b), mul_ops + add_ops),
+        ("scale", "acc + column x claim's weight", plimbs.scale,
+         plimbs.scale_plain, (x, s_c, acc), (1, 1, 1),
+         3 * full + ELEM * b, mul_ops + add_ops),
+        ("cube", "column", plimbs.cube, plimbs.cube_plain, (x,), (1,),
+         2 * full, b * n * (OPS_MUL + OPS_SQR)),
+    ]
+
+
+def phase_elementwise_claims(rows, device):
+    """Phase 2, continued: the claim axis of the AIR's elementwise kernels
+    (A7 mul, A8 add, sub and cube, A2 scale). Each form, over
+    TIMED_CLAIMS claims at 2^19 in one launch, equals its plain version
+    (with the same claim axis) and TIMED_CLAIMS one-claim launches,
+    exactly; then the device time of the launch (L2 flushed before it)
+    against the TIMED_CLAIMS one-claim launches (flushed before the
+    run), beside the bound of the launch. Adds `claims16` to the rows."""
+    import torch
+    sms, mhz = card_clocks(device)
+    ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    flush = torch.empty(FLUSH_WORDS, dtype=torch.int32, device=device).zero_
+    b = TIMED_CLAIMS
+    for name, form, wrapper, plain, args, claimed, nbytes, ops in \
+            elementwise_claim_cases(b, device, SEED + 11):
+        got = wrapper(*args)
+        singles = [wrapper(*claim_args(args, claimed, c)) for c in range(b)]
+        check(torch.equal(got, plain(*args))
+              and torch.equal(got, torch.stack(singles)),
+              f"kernel {name} ({form}) over {b} claims differs from its "
+              f"plain version or its one-claim launches")
+        del singles
+        dev, per_call = kernel_times(lambda: wrapper(*args), device, flush)
+
+        def one_claim_launches():
+            for c in range(b):
+                wrapper(*claim_args(args, claimed, c))
+        each, _ = kernel_times(one_claim_launches, device, flush)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / ops_per_s * 1e3
+        bound = max(bytes_ms, ops_ms)
+        entry = {"form": form, "claims": b, "max_abs_err": 0, "ms": dev,
+                 "call_ms": per_call, "one_claim_launches_ms": each,
+                 "bound_ms": bound,
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "l2": "flushed"}
+        rows[name].setdefault("claims16", []).append(entry)
+        print(f"  {name:<6s} {form} over {b} claims: equal to plain and "
+              f"{b} one-claim launches; device {dev:.6f} ms per launch "
+              f"({dev / b:.6f} per claim), {b} one-claim launches "
+              f"{each:.6f} ms, bound {bound:.6f} ms ({entry['bound_by']}, "
+              f"{bound / dev:.1%})", flush=True)
+    torch.cuda.empty_cache()       # the plain versions' limb products
+
+
+def phase_trace(rows, device):
+    """Phase 2, continued: the device MiMC trace (`mimc_trace_kernel`, the
+    counterpart of a lax.scan, no Pallas kernel). Over TRACE_CLAIMS claims
+    at TRACE_CHECK_STEPS steps it equals its plain version (the kernel's
+    row: device time, plain time and bound on these inputs); then the
+    path `models.mimc.trace_batch_device` of TRACE_CLAIMS claims at
+    BIG_STEPS steps, counted alone, equals the native host trace of each
+    claim, with its device time beside the native trace of the same
+    claims. Adds the row; returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from starks_tpu_torch.models import mimc
+    from starks_tpu_torch.ops import plimbs
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    inps = list(range(TRACE_CLAIMS))
+    x0, k = ints_to_tensor(inps, device), ints_to_tensor(CONSTS, device)
+
+    def trace_bytes(steps):      # inputs and constants in, the trace out
+        return ELEM * (TRACE_CLAIMS * (steps + 1) + len(CONSTS))
+
+    def trace_ops(steps):        # a cube (modmul + square) and an add a step
+        return TRACE_CLAIMS * (steps - 1) * (OPS_MUL + OPS_SQR + OPS_ADD)
+
+    sms, mhz = card_clocks(device)
+    ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+    def bound(steps):
+        b_ms = trace_bytes(steps) / HBM_BYTES_PER_S * 1e3
+        o_ms = trace_ops(steps) / ops_per_s * 1e3
+        return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+    args = (x0, k, TRACE_CHECK_STEPS)
+    err = max_abs_err(plimbs.mimc_trace, plimbs.mimc_trace_plain, args)
+    dev, per_call = kernel_times(lambda: plimbs.mimc_trace(*args), device)
+    bound_ms, bound_by = bound(TRACE_CHECK_STEPS)
+    row = {"name": "mimc_trace", "route": "cuda", "source": SRC,
+           "replaces": REPLACES["mimc_trace"], "launches": 0,
+           "max_abs_err": err, "ms": dev, "call_ms": per_call,
+           "plain_ms": call_ms(lambda: plimbs.mimc_trace_plain(*args),
+                               device, 1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "l2": "warm", "shape": f"{TRACE_CLAIMS} claims x "
+                                  f"{TRACE_CHECK_STEPS} steps"}
+    rows["mimc_trace"] = row
+    print(f"  mimc_trace {TRACE_CLAIMS} claims x {TRACE_CHECK_STEPS} steps: "
+          f"equal to plain (max_abs_err {err}); device {dev:.6f} ms, "
+          f"per-call {per_call:.6f} ms, plain {row['plain_ms']:.3f} ms, "
+          f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
+
+    got, launches = counted(lambda: mimc.trace_batch_device(
+        inps, BIG_STEPS, CONSTS, device))
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    native = np.stack([mimc.trace_limbs(x, BIG_STEPS, CONSTS) for x in inps])
+    native_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(got.cpu().numpy(), native),
+          f"the device trace of {TRACE_CLAIMS} claims differs from the "
+          f"native host trace")
+    dev, _ = kernel_times(lambda: plimbs.mimc_trace(x0, k, BIG_STEPS),
+                          device)
+    bound_ms, bound_by = bound(BIG_STEPS)
+    row["full"] = {"shape": f"{TRACE_CLAIMS} claims x {BIG_STEPS} steps",
+                   "ms": dev, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "native_ms": native_ms}
+    print(f"  {TRACE}: trace_batch_device equals the native trace of every "
+          f"claim; device {dev:.3f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}), native host trace of the same claims "
+          f"{native_ms:.3f} ms (one thread)", flush=True)
+    print_launches(launches)
+    return launches
+
+
 def phase_dif_designs(device):
     """Phase 2, continued: the DIF transform, scaled and not, for each
     stages-per-pass width 4-10 at 2^13 and 2^16 points (each equal to
@@ -868,8 +1076,8 @@ def expect_rejected(verify, proof, what):
 
 def phase_air(device):
     """Phase 5: general AIR proofs through prove_air and verify_air.
-    Returns the steady fib-square wall times by steps, and the launch
-    counts of each counted path."""
+    Returns the steady fib-square wall times by steps, the launch counts
+    of each counted path and the BIG_STEPS fib-square proof."""
     import starks_tpu_torch as stt
     from starks_tpu_torch.models import fib_square as fib
     from starks_tpu_torch.models.mimc import mimc_air, mimc_forward
@@ -938,7 +1146,7 @@ def phase_air(device):
     print(f"  MiMC as an AIR, {SMALL_STEPS} steps: verified, output equals "
           f"mimc_forward ({t1 - t0:.3f} s incl. setup)", flush=True)
     print_launches(launches[MIMC_AIR])
-    return steady_s, launches
+    return steady_s, launches, proofs[BIG_STEPS]
 
 
 class Spy:
@@ -1095,6 +1303,104 @@ def phase_batch(device, small_oracle):
           f"{native_ms:.3f} ms (mean of {reps}), plain bigints {plain_ms:.3f} "
           f"ms (one)", flush=True)
     return per_chunk[BATCH_CHUNK], launches
+
+
+def phase_air_batch(device, fib_proof16):
+    """Phase 10: general AIR proofs over a claim axis
+    (`prove_air_batch_fused`). AIR_CHUNK fib-square claims at BIG_STEPS
+    steps in one chunk, counted alone: every claim accepted by
+    `verify_air` with the output of fib_square_output, claim 0 equal to
+    phase 5's serial proof and the last claim to its serial `prove_air`,
+    byte for byte, a changed boundary value rejected; stage times and
+    peak device memory; proofs/s at chunks of AIR_CHUNK, 4 and 1 (chunk 1
+    on 4 claims; equal proofs); the host trace (`air.trace`, Python
+    ints) per claim. Then
+    MiMC as an AIR over MIMC_AIR_CLAIMS claims at SMALL_STEPS, each equal
+    to its serial proof. Returns the chunk's stage-timed wall time and
+    launch counts."""
+    import torch
+    import starks_tpu_torch as stt
+    from starks_tpu_torch.models import fib_square as fib
+    from starks_tpu_torch.models.mimc import mimc_air, mimc_forward
+    air = fib.fib_square_air()
+    claims = [[i + 1, 2 * i + 1] for i in range(AIR_CHUNK)]   # 0: [1, 1]
+
+    def chunk_of_all(timings=None):
+        return stt.prove_air_batch_fused(air, claims, BIG_STEPS,
+                                         chunk=AIR_CHUNK, device=device,
+                                         timings=timings)
+
+    t0 = time.perf_counter()
+    chunk_of_all()
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    steady = {}
+    proofs, launches = counted(lambda: chunk_of_all(steady))
+    peak = torch.cuda.max_memory_allocated(device)
+    t0 = time.perf_counter()
+    for (a, b), proof in zip(claims, proofs):
+        check(stt.verify_air(air, BIG_STEPS, proof),
+              f"verifier rejected AIR batch claim {[a, b]}")
+        check(dict(proof[5])[(BIG_STEPS - 1, 1)]
+              == fib.fib_square_output(a, b, BIG_STEPS),
+              f"AIR batch claim {[a, b]}: output boundary differs")
+    verify_s = time.perf_counter() - t0
+    last = AIR_CHUNK - 1
+    check(proofs[0] == fib_proof16,
+          "AIR batch claim 0 differs from the serial fib-square proof")
+    check(proofs[last] == stt.prove_air(air, claims[last], BIG_STEPS,
+                                        device=device),
+          f"AIR batch claim {last} differs from its serial prove_air")
+    bad = copy.deepcopy(proofs[last])
+    bad[5] = [(k, (v + 1) % fib.MODULUS) if k == (0, 0) else (k, v)
+              for k, v in bad[5]]
+    expect_rejected(lambda q: stt.verify_air(air, BIG_STEPS, q), bad,
+                    "a changed boundary value in an AIR batch claim")
+    print(f"  {AIR_BATCH}, counted alone: all {AIR_CHUNK} verified "
+          f"({verify_s:.3f} s) with the outputs of fib_square_output; claims "
+          f"0 and {last} equal the serial prove_air byte for byte; a changed "
+          f"boundary value rejected; first call {first_s:.3f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB", flush=True)
+    print_launches(launches)
+    for stage, sec in steady.items():
+        print(f"    {stage:<32s} {sec * 1e3:10.3f} ms", flush=True)
+
+    # Chunk 1 proves the first 4 claims only: one at a time, they take
+    # as long as the rest of the phase.
+    rates = {}
+    for chunk, count in ((AIR_CHUNK, AIR_CHUNK), (4, AIR_CHUNK), (1, 4)):
+        t0 = time.perf_counter()
+        got = stt.prove_air_batch_fused(air, claims[:count], BIG_STEPS,
+                                        chunk=chunk, device=device)
+        rates[chunk] = count / (time.perf_counter() - t0)
+        check(got == proofs[:count],
+              f"AIR chunk {chunk} gives other proofs than chunk {AIR_CHUNK}")
+    print(f"  fib-square claims at chunk {AIR_CHUNK} / 4 / 1 ({AIR_CHUNK} / "
+          f"{AIR_CHUNK} / 4 claims): " + " / ".join(
+              f"{rates[c]:.4f}" for c in (AIR_CHUNK, 4, 1))
+          + " proofs/s; equal proofs", flush=True)
+    t0 = time.perf_counter()
+    air.trace(claims[0], BIG_STEPS)
+    print(f"  host trace (air.trace, Python ints) per claim at {BIG_STEPS} "
+          f"steps: {(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+
+    m_air = mimc_air(AIR_CONSTS)
+    inps = [[INP + i] for i in range(MIMC_AIR_CLAIMS)]
+    t0 = time.perf_counter()
+    got = stt.prove_air_batch_fused(m_air, inps, SMALL_STEPS, device=device)
+    batch_s = time.perf_counter() - t0
+    for (x,), proof in zip(inps, got):
+        check(proof == stt.prove_air(m_air, [x], SMALL_STEPS, device=device),
+              f"MiMC-as-AIR batch claim {x} differs from its serial proof")
+        check(stt.verify_air(m_air, SMALL_STEPS, proof)
+              and dict(proof[5])[(SMALL_STEPS - 1, 0)]
+              == mimc_forward(x, SMALL_STEPS, AIR_CONSTS),
+              f"MiMC-as-AIR batch claim {x} rejected or wrong output")
+    print(f"  MiMC as an AIR, {MIMC_AIR_CLAIMS} claims at {SMALL_STEPS} steps "
+          f"in one chunk ({batch_s:.3f} s): each equals its serial proof, "
+          f"verified, output of mimc_forward", flush=True)
+    return steady["total"], launches
 
 
 def config4_cases(device):
@@ -1362,11 +1668,12 @@ def phase_config4(rows, device, proof16, launches):
 
 
 def phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,
-                   mimc4_steady_s):
+                   mimc4_steady_s, air_chunk_steady_s):
     """Phase 7: one more proof of each timed kind (MiMC 2^16 and 2^20 on
-    one card, fib-square), and one batch chunk, under torch.profiler. It
-    runs after every timed proof, so no timing follows a profiler
-    run."""
+    one card, fib-square), one batch chunk and one AIR chunk, under
+    torch.profiler, each with its launches held against the port's
+    counters. It runs after every timed proof, so no timing follows a
+    profiler run."""
     import starks_tpu_torch as stt
     from starks_tpu_torch.models import fib_square as fib
     for steps, steady_s in ((BIG_STEPS, mimc_steady_s),
@@ -1387,6 +1694,11 @@ def phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,
         stt.mk_mimc_proof_batch_fused(list(range(BATCH_CHUNK)), BIG_STEPS,
                                       CONSTS, chunk=BATCH_CHUNK, device=device)
     profile_proof(chunk, device, chunk_steady_s)
+    print(f"  {AIR_BATCH}:", flush=True)
+    claims = [[i + 1, 2 * i + 1] for i in range(AIR_CHUNK)]
+    profile_proof(lambda: stt.prove_air_batch_fused(
+        air, claims, BIG_STEPS, chunk=AIR_CHUNK, device=device), device,
+        air_chunk_steady_s)
     for what, run in ((MIMC, lambda: stt.mk_mimc_proof(
             INP, BIG_STEPS, CONSTS, device=device)), (BATCH, chunk)):
         print(f"  {what}: {count_syncs(run, device)} calls that wait for "
@@ -1412,17 +1724,27 @@ def count_syncs(run, device) -> int:
 
 # The field kernels, as the profiler and cuobjdump name them (mangled
 # or not), with a template argument: the DIT pass's butterflies per
-# thread, the streaming frame's op.
+# thread, the elementwise frames' op.
 FIELD_KERNEL = re.compile(
-    r"^(?:void )?(?:_Z\d+)?(dif_pass|dit_pass|stream_map|db|l|fold4|mul|add"
-    r"|sub)_kernel(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<(\w+)>)?(?:\(|P|$)")
-# The wrapper each op of the streaming frame serves.
-STREAM_OPS = {"ScaleOp": "scale", "ScaleAccOp": "scale", "CubeOp": "cube"}
+    r"^(?:void )?(?:_Z\d+)?(dif_pass|dit_pass|stream_map|flat_map|binary|db"
+    r"|l|fold4|mimc_trace)_kernel(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<(\w+)>)?"
+    r"(?:\(|P|$)")
+# The wrapper (and LAUNCHES key) each kernel or template op serves.
+KERNEL_KEYS = {"db": "db_map", "l": "l_map", "ScaleOp": "scale",
+               "ScaleAccOp": "scale", "CubeOp": "cube", "MulOp": "mul",
+               "AddOp": "add", "SubOp": "sub"}
+# A profiler session after the first in a process drops the first few
+# launches of the port's kernels (up to 17 of these 64 on an H100 with
+# torch 2.11), while it keeps torch's kernels around them. So each
+# profile first makes PROFILE_PRIMER launches of its own, ends them
+# with a spin on the card, and counts only what follows the spin.
+PROFILE_PRIMER = 64
 
 
 def kernel_label(name) -> str:
     """A field kernel's short name, with its template argument if any
-    (dit_pass<2>, stream_map<CubeOp>); other names as they are."""
+    (dit_pass<2>, stream_map<CubeOp>, binary<MulOp>); other names as
+    they are."""
     m = FIELD_KERNEL.match(name)
     if not m:
         return name
@@ -1431,29 +1753,53 @@ def kernel_label(name) -> str:
 
 
 def kernel_key(m) -> str:
-    """The wrapper a FIELD_KERNEL match belongs to (the streaming
-    frame's op's, for stream_map)."""
-    if m.group(1) == "stream_map":
-        return STREAM_OPS.get(m.group(3) or m.group(4), "stream_map")
-    return m.group(1)
+    """The wrapper (LAUNCHES key) a FIELD_KERNEL match belongs to."""
+    if m.group(1) in ("stream_map", "flat_map", "binary"):
+        return KERNEL_KEYS[m.group(3) or m.group(4)]
+    return KERNEL_KEYS.get(m.group(1), m.group(1))
+
+
+def prime_profiler(device):
+    """PROFILE_PRIMER launches of the port's add kernel on one element,
+    then a spin on the card (torch's spin_kernel) that marks their
+    end."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    one = torch.ones((1, 8), dtype=torch.int32, device=device)
+    for _ in range(PROFILE_PRIMER):
+        plimbs.add(one, one)
+    torch.cuda._sleep(1000)
 
 
 def profile_proof(run, device, steady_s):
-    """One more proof (`run`) under torch.profiler: the CUDA kernels it
-    launched, their device time, that time's share of the steady
-    (stage-timed) wall time, and the device time of the field kernels."""
+    """One more proof (`run`) under torch.profiler, after the primer: the
+    CUDA kernels it launched, their device time, that time's share of
+    the steady (stage-timed) wall time, the device time of the field
+    kernels, and each field kernel's launches as the profiler lists them
+    beside the port's counters (LAUNCHES) for the same run. Launches the
+    profiler lost are printed per kernel, and then the busy share is
+    marked a lower bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from starks_tpu_torch.ops import plimbs
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        prime_profiler(device)
+        plimbs.reset_launches()
         run()
         torch.cuda.synchronize(device)
-    launches, device_us, field_us = 0, 0.0, {}
-    for evt in prof.events():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or "memcpy" in evt.name.lower()
-                or "memset" in evt.name.lower()):
+        counts = dict(plimbs.LAUNCHES)
+    events = sorted((evt for evt in prof.events()
+                     if evt.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda evt: evt.time_range.start)
+    spins = [i for i, evt in enumerate(events) if "spin_kernel" in evt.name]
+    check(spins, "the profiler lists no spin after the primer")
+    primer = sum(bool(FIELD_KERNEL.match(evt.name))
+                 for evt in events[:spins[0]])
+    launches, device_us, field_us, seen = 0, 0.0, {}, {}
+    for evt in events[spins[0] + 1:]:
+        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
             continue
         us = evt.time_range.elapsed_us()
         launches += 1
@@ -1462,38 +1808,50 @@ def profile_proof(run, device, steady_s):
         if m:
             key = kernel_key(m)
             field_us[key] = field_us.get(key, 0.0) + us
+            seen[key] = seen.get(key, 0) + 1
     check(launches > 0, "the profiler saw no kernel on the card")
+    lost = {k: v - seen.get(k, 0) for k, v in counts.items()
+            if v != seen.get(k, 0)}
+    busy = device_us / 1e6 / steady_s
     print(f"  profiled proof: {launches} CUDA kernel launches, "
-          f"{device_us / 1e6:.5f} s of kernel time, device busy "
-          f"{device_us / 1e6 / steady_s:.2%} of the steady "
-          f"{steady_s:.5f} s; field kernels (ms): "
+          f"{device_us / 1e6:.5f} s of kernel time, device busy {busy:.2%}"
+          f"{' (a lower bound: launches lost)' if lost else ''} of the "
+          f"steady {steady_s:.5f} s; field kernels (ms): "
           + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in
                       sorted(field_us.items(), key=lambda kv: -kv[1])),
           flush=True)
+    print(f"    field kernel launches, profiler / counters: " + ", ".join(
+        f"{k} {seen.get(k, 0)}/{v}" for k, v in counts.items() if v)
+        + (f"; LOST by the profiler: {lost}" if lost else
+           "; none lost (the profile is whole)")
+        + f"; primer: {primer} of {PROFILE_PRIMER} listed", flush=True)
+    return {"lost": lost, "primer_listed": primer, "busy": busy}
 
 
 def phase_launches(rows, launches):
     """Phase 8: each path launched every kernel it runs, the NTTs only
-    through the multi-stage passes (at most two per column: <= 3 DIF or
-    DIT pass launches per MiMC 2^16 proof, one column, and <= 4 per
-    fib-square 2^13 proof, two columns), and the MiMC path no scale (the
-    LDE's 1/n is in the DIF transform); one batch chunk launches each
-    kernel exactly as often as one MiMC 2^16 proof (the claim axis, not
-    a loop over claims); prints the scale and add counts of every path
-    (the AIR sums take each scaled term with scale's accumulator, so no
-    add follows a scale); each kernel row gets the count of its own
-    main path and those of every path."""
+    through the multi-stage passes (one DIF and one DIT transform for
+    all of a proof's columns: <= 3 DIF or DIT pass launches per MiMC
+    2^16 proof and <= 2 per fib-square 2^13 proof), and the MiMC path no
+    scale (the LDE's 1/n is in the DIF transform); one batch chunk
+    launches each kernel exactly as often as one MiMC 2^16 proof, and
+    one AIR chunk as often as one fib-square 2^16 proof (the claim axis,
+    not a loop over claims); prints the scale and add counts of every
+    path (the AIR sums take each scaled term with scale's accumulator,
+    so no add follows a scale); each kernel row gets the count of its
+    own main path and those of every path."""
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path][name] > 0,
                   f"kernel {name} never ran on the {path} path")
-    for name, count in launches[MIMC].items():
-        check(launches[BATCH][name] == count,
-              f"{launches[BATCH][name]} {name} launches per {BATCH}, "
-              f"{count} per {MIMC} proof")
-    print(f"  {BATCH}: every kernel's launches equal one {MIMC} proof's",
-          flush=True)
-    for path in (MIMC4, SHARDED.format(BIG_STEPS), MIMC4_SHARDED):
+    for chunk, one in ((BATCH, MIMC), (AIR_BATCH, FIB_BIG)):
+        for name, count in launches[one].items():
+            check(launches[chunk][name] == count,
+                  f"{launches[chunk][name]} {name} launches per {chunk}, "
+                  f"{count} per {one} proof")
+        print(f"  {chunk}: every kernel's launches equal one {one} "
+              f"proof's", flush=True)
+    for path in (MIMC4, SHARDED.format(BIG_STEPS), MIMC4_SHARDED, TRACE):
         extra = [k for k, v in launches[path].items()
                  if v and k not in PATH_KERNELS[path]]
         check(not extra, f"the {path} path launched {extra}")
@@ -1502,7 +1860,7 @@ def phase_launches(rows, launches):
     for name in ("dif_pass", "dit_pass"):
         check(launches[MIMC][name] <= 3,
               f"{launches[MIMC][name]} {name} launches on the {MIMC} path")
-        check(launches[FIB][name] <= 4,
+        check(launches[FIB][name] <= 2,
               f"{launches[FIB][name]} {name} launches on the {FIB} path")
     for name in ("scale", "add"):
         print(f"  {name} launches per path: " + " / ".join(
@@ -1515,6 +1873,11 @@ def phase_launches(rows, launches):
         print(f"  {name:<10s} " + ", ".join(
             f"{p} {n}" for p, n in row["launches_by_path"].items()),
             flush=True)
+
+
+def announce(title):
+    """A phase's title line, with the seconds since the script started."""
+    print(f"{title} [{time.perf_counter() - STARTED:.1f} s]", flush=True)
 
 
 def main() -> int:
@@ -1530,43 +1893,51 @@ def main() -> int:
         return 1
     device = torch.device("cuda", 0)
 
-    print("phase 1: card and build", flush=True)
+    announce("phase 1: card and build")
     card = phase_build(_build)
 
-    print(f"phase 2: kernels against plain versions at {BIG_STEPS}-step "
-          f"shapes", flush=True)
+    announce(f"phase 2: kernels against plain versions at {BIG_STEPS}-step "
+             f"shapes")
     rows = phase_kernels(BIG_STEPS, device)
     phase_claims(rows, device)
+    phase_elementwise_claims(rows, device)
+    trace_launches = phase_trace(rows, device)
     phase_dif_designs(device)
     phase_dit_designs(device)
     phase_stream_turns(device)
 
-    print("phase 3: main path, small proof", flush=True)
+    announce("phase 3: main path, small proof")
     small_oracle = phase_small_proof(SMALL_STEPS, device)
-    print("phase 4: main path, large proof", flush=True)
+    announce("phase 4: main path, large proof")
     proof16, mimc_steady_s, mimc_launches = phase_big_proof(BIG_STEPS,
                                                            device)
 
-    print("phase 5: general AIR proofs", flush=True)
-    air_steady_s, launches = phase_air(device)
+    announce("phase 5: general AIR proofs")
+    air_steady_s, launches, fib_proof16 = phase_air(device)
     launches[MIMC] = mimc_launches
+    launches[TRACE] = trace_launches
 
-    print(f"phase 6: batch proving ({BATCH_CLAIMS} x {BIG_STEPS} steps, "
-          f"chunk {BATCH_CHUNK}, verified)", flush=True)
+    announce(f"phase 6: batch proving ({BATCH_CLAIMS} x {BIG_STEPS} steps, "
+             f"chunk {BATCH_CHUNK}, verified)")
     chunk_steady_s, launches[BATCH] = phase_batch(device, small_oracle)
+
+    announce(f"phase 10: AIR proofs over a claim axis ({AIR_CHUNK} x "
+             f"fib-square {BIG_STEPS} steps in one chunk)")
+    air_chunk_steady_s, launches[AIR_BATCH] = phase_air_batch(device,
+                                                              fib_proof16)
 
     # Config 4 runs before phase 7: a profiler session slows every later
     # launch in the process.
-    print(f"phase 9: benchmark config 4 ({CONFIG4_STEPS} steps, "
-          f"{CONFIG4_STEPS * EXT}-point domain), one card and {SHARDS} "
-          f"shards", flush=True)
+    announce(f"phase 9: benchmark config 4 ({CONFIG4_STEPS} steps, "
+             f"{CONFIG4_STEPS * EXT}-point domain), one card and {SHARDS} "
+             f"shards")
     mimc4_steady_s = phase_config4(rows, device, proof16, launches)
 
-    print("phase 7: profiled proofs", flush=True)
+    announce("phase 7: profiled proofs")
     phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,
-                   mimc4_steady_s)
+                   mimc4_steady_s, air_chunk_steady_s)
 
-    print("phase 8: launches on the main paths", flush=True)
+    announce("phase 8: launches on the main paths")
     phase_launches(rows, launches)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

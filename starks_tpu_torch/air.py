@@ -1,9 +1,12 @@
 """General AIR (Algebraic Intermediate Representation) STARKs on PyTorch
 and CUDA.
 
-Port of `starks_tpu/air.py`: `prove_air` is the counterpart of both JAX
-`prove_air` and `prove_air_fused` (whose proofs are byte-identical), and
-follows the single-device core `pallas_core_fn` without its pruning.
+Port of `starks_tpu/air.py`: `prove_air_batch_fused` is the counterpart
+of `_FusedAIRSetup.batch_core` (the vmap of the AIR core over a claim
+axis) followed by one proof's assembly per claim, and `prove_air`, its
+one-claim case, of both JAX `prove_air` and `prove_air_fused` (whose
+proofs are byte-identical). Both follow the single-device core
+`pallas_core_fn` without its pruning.
 
 Protocol (w registers, m transition constraints, b bounded registers):
   - each register column is LDE'd over <G2> (8x blowup)
@@ -18,9 +21,9 @@ Protocol (w registers, m transition constraints, b bounded registers):
 
 Transition constraints are written against an `ops` namespace (add /
 sub / mul / cube and constant embedding), so the same definition runs on
-[n, 8] field tensors in the prover (`TorchOps`: one launch of the mul,
-add, sub or cube kernel per op) and on Python ints in the verifier
-(`HostOps`).
+[B, n, 8] field tensors of B claims in the prover (`TorchOps`: one
+launch of the mul, add, sub or cube kernel per op for all B claims) and
+on Python ints in the verifier (`HostOps`).
 """
 
 import torch
@@ -41,11 +44,13 @@ MODULUS = REFERENCE.modulus
 
 
 class TorchOps:
-    """Field ops on [L, 8] int32 tensors (prover side), each one kernel
-    launch (ops/plimbs.py) on the card or its plain version on the CPU.
-    Operands are read periodically, so a constant is one [1, 8] element
-    and a constant column its [8 * len(col), 8] extension: neither is
-    tiled to the domain size. Counterpart of `PallasOps`."""
+    """Field ops on int32 tensors (prover side), each one kernel launch
+    (ops/plimbs.py) on the card or its plain version on the CPU. The
+    claims' columns are [B, n, 8]; constants and constant columns are
+    [L, 8], shared by the claims. Operands are read periodically, so a
+    constant is one [1, 8] element and a constant column its
+    [8 * len(col), 8] extension: neither is tiled to the domain size.
+    Counterpart of `PallasOps`."""
 
     add = staticmethod(plimbs.add)
     sub = staticmethod(plimbs.sub)
@@ -226,18 +231,25 @@ class _FusedAIRSetup:
 
 
 def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
-    """The device part of an AIR proof (`pallas_core_fn` of
-    starks_tpu/air.py without pruning): trace [w, steps, 8], boundary
-    values ys [k, 8] in b_regs order, then sorted steps. Returns the named
-    sections, as int64 word tensors on the device."""
+    """The device part of B AIR proofs (`pallas_core_fn` of
+    starks_tpu/air.py without pruning, over a claim axis, as
+    `batch_core` vmaps it): traces [B, w, steps, 8], boundary values
+    ys [B, k, 8], each claim's in b_regs order, then sorted steps.
+    Returns the named sections, as int64 word tensors [B, ...] on the
+    device."""
     plan = su.plan
+    claims, w, steps = trace.shape[:3]
 
-    p_cols = [fused.lde(col, plan.inv_small, plan.n_inv_small, plan.xs_big)
-              for col in trace]
+    # One LDE of all B*w register columns (register-major, so that each
+    # register's [B, n, 8] block is contiguous).
+    p = fused.lde(trace.transpose(0, 1).reshape(w * claims, steps, NUM_WORDS),
+                  plan.inv_small, plan.n_inv_small, plan.xs_big)
+    p_cols = list(p.reshape(w, claims, -1, NUM_WORDS))
     timer.mark("lde")
 
-    # Transition constraints -> quotients; boundary quotients.
-    nxt = [torch.roll(p, -su.ext, 0) for p in p_cols]
+    # Transition constraints -> quotients; boundary quotients. P(g1 x)
+    # rolls each claim's own rows.
+    nxt = [torch.roll(col, -su.ext, -2) for col in p_cols]
     c_list = air.transition(p_cols, nxt, su.k_tabs, su.ops)
     if len(c_list) != air.num_constraints:
         raise ValueError(f"transition gave {len(c_list)} constraints, the "
@@ -245,7 +257,7 @@ def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
     d_cols = [plimbs.mul(plimbs.mul(c, su.x_minus_last), su.zni)
               for c in c_list]
     b_cols = []
-    y_iter = iter(ys)
+    y_iter = iter(ys.transpose(0, 1).contiguous())   # [B, 8] per point
     for reg, basis_r, inv_z in zip(su.b_regs, su.basis, su.inv_z):
         i_ev = None
         for basis in basis_r:
@@ -259,7 +271,8 @@ def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
     m_tree = merkle.Tree(m_leaf)
     timer.mark("merkle #1 (P||D||B)")
 
-    # Fiat-Shamir weights: D columns, then (k', k'') per P and B column.
+    # Fiat-Shamir weights ([B, 8], each claim's own): D columns, then
+    # (k', k'') per P and B column.
     ks = iter([td.challenge_limbs(m_tree.root, j + 1)
                for j in range(su.n_weights)])
     l_vals = None
@@ -272,11 +285,80 @@ def _prove_air_sections(air: AIR, su: _FusedAIRSetup, trace, ys, timer):
     return prover._query_sections(su, m_tree, l_vals, timer)
 
 
+def _prove_air_chunk(air: AIR, inputs_list, steps: int, config, device,
+                     timer):
+    """Queue the proofs of one chunk of claims and their one
+    device-to-host copy. Returns the setup, the pending fetch and each
+    claim's public boundary list."""
+    rows = [air.trace(inputs, steps) for inputs in inputs_list]
+    timer.mark("host trace")
+    su = _FusedAIRSetup.get(air, steps, config, device)
+    w, claims = air.width, len(rows)
+    trace = prover._upload(ints_to_tensor(
+        [row[r] for t in rows for r in range(w) for row in t]).reshape(
+            claims, w, steps, NUM_WORDS), device)
+    points = air.boundary_points(steps)
+    values = [{(s, r): t[s][r] for (s, r) in points} for t in rows]
+    order = [(s, reg) for reg in su.b_regs for s in su.b_steps[reg]]
+    ys = prover._upload(ints_to_tensor(
+        [v[key] for v in values for key in order]).reshape(
+            claims, len(order), NUM_WORDS), device)
+    timer.mark("setup + trace upload")
+    sections = _prove_air_sections(air, su, trace, ys, timer)
+    return su, prover._start_fetch(sections), [sorted(v.items())
+                                               for v in values]
+
+
+def _finish_air_chunk(pending, timer):
+    su, fetch, boundaries = pending
+    proofs = prover._finish_fetch(fetch, su.main_leaf_words,
+                                  len(su.schedule), timer)
+    return [proof + [b] for proof, b in zip(proofs, boundaries)]
+
+
+def prove_air_batch_fused(air: AIR, inputs_list, steps: int,
+                          config: StarkConfig = REFERENCE, chunk: int = None,
+                          device=None, timings: dict = None):
+    """Proofs of independent claims of one AIR, one per entry of
+    `inputs_list` (each a list of `air.width` ints), each
+    [m_root, l_root, main_branches, lc_branches, fri_proof,
+    public_boundary] and byte-identical to `prove_air` for that claim.
+
+    The counterpart of the JAX package's `_FusedAIRSetup.batch_core`
+    (starks_tpu/air.py:685) followed by one proof's assembly per claim.
+    Claims go in chunks of `chunk` (default prover.DEFAULT_CHUNK): each
+    chunk is one pass of the prover over a claim axis (one launch of
+    each kernel and blake2s tensor op for all its claims) and one
+    device-to-host copy. Chunk i+1's traces (`air.trace`, Python ints)
+    are built and its proofs queued before chunk i is assembled on the
+    host. `device` as in `prove_air`; with `timings`, the stage seconds
+    of the last chunk (each stage waits for the device)."""
+    device = prover._resolve_device(device)
+    assert is_a_power_of_2(steps)
+    assert steps <= 2**32 // config.extension_factor
+    chunk = prover.DEFAULT_CHUNK if chunk is None else chunk
+    if chunk < 1:
+        raise ValueError(f"chunk {chunk} < 1")
+    timer = prover._StageTimer(timings, device)
+    inputs_list = list(inputs_list)
+    proofs, pending = [], None
+    for lo in range(0, len(inputs_list), chunk):
+        queued = _prove_air_chunk(air, inputs_list[lo:lo + chunk], steps,
+                                  config, device, timer)
+        if pending is not None:
+            proofs += _finish_air_chunk(pending, timer)
+        pending = queued
+    if pending is not None:
+        proofs += _finish_air_chunk(pending, timer)
+    return proofs
+
+
 def prove_air(air: AIR, inputs, steps: int,
               config: StarkConfig = REFERENCE, device=None,
               timings: dict = None):
     """[m_root, l_root, main_branches, lc_branches, fri_proof,
-    public_boundary] for `air` on `inputs`.
+    public_boundary] for `air` on `inputs`: the one-claim case of
+    `prove_air_batch_fused`.
 
     The counterpart of both `starks_tpu.air.prove_air` and
     `prove_air_fused`, which emit identical bytes; this proof equals
@@ -285,27 +367,8 @@ def prove_air(air: AIR, inputs, steps: int,
     its own. `device="cpu"` runs the plain PyTorch versions of the
     kernels. Pass a dict as `timings` to receive per-stage seconds, with
     the stage names of `mk_mimc_proof`."""
-    device = prover._resolve_device(device)
-    assert is_a_power_of_2(steps)
-    assert steps <= 2**32 // config.extension_factor
-
-    timer = prover._StageTimer(timings, device)
-    trace_rows = air.trace(inputs, steps)
-    timer.mark("host trace")
-    su = _FusedAIRSetup.get(air, steps, config, device)
-    w = air.width
-    trace = ints_to_tensor([row[r] for r in range(w) for row in trace_rows],
-                           device).reshape(w, steps, NUM_WORDS)
-    boundary_values = {(s, r): trace_rows[s][r]
-                       for (s, r) in air.boundary_points(steps)}
-    ys = ints_to_tensor([boundary_values[(s, reg)] for reg in su.b_regs
-                         for s in su.b_steps[reg]], device)
-    timer.mark("setup + trace upload")
-
-    sections = _prove_air_sections(air, su, trace, ys, timer)
-    proof = prover._finish_proof(sections, su.main_leaf_words,
-                                 len(su.schedule), timer)
-    return proof + [sorted(boundary_values.items())]
+    return prove_air_batch_fused(air, [inputs], steps, config, chunk=1,
+                                 device=device, timings=timings)[0]
 
 
 def verify_air(air: AIR, steps: int, proof,

@@ -5,19 +5,22 @@
 // carried over. Arrays are [n] elements of 8 little-endian 32-bit words
 // (32 bytes, 16-byte aligned). One thread per output element (or
 // butterfly) and a grid-stride loop, except the DIF and DIT passes,
-// which run several NTT stages of a tile in shared memory. Scale and
-// cube share one template (stream_map). Periodic tables are read as
-// tab[i % len]; a scalar is one element in device memory.
+// which run several NTT stages of a tile in shared memory, and the
+// elementwise maps (stream_map, flat_map), one element per thread.
+// Periodic tables are read as tab[i % len]; a scalar is one element in
+// device memory.
 //
-// The kernels of the MiMC path (the DIF and DIT passes, the D/B and L
-// maps, fold4) take a claim axis: `batch` proofs' arrays one after
+// Every kernel takes a claim axis: `batch` proofs' arrays one after
 // another ([batch, n] elements), one launch for all of them, the claim
 // in blockIdx.y. Shared tables (twiddles, x, the periodic K and 1/Z
 // tables, eta, the u-table, scalars of the setup) are read by every
 // claim from the same pointer; per-claim operands (the boundary's
 // slope and ia, the L map's coefficient tables, fold4's sx) are
-// indexed by the claim. Claim offsets are 64-bit: batch * n * 32 bytes
-// passes 2^32 at 2^20 steps and 16 claims.
+// indexed by the claim. The AIR's elementwise ops (mul, add, sub,
+// scale, cube) take a stride per operand instead: 0 for an operand
+// every claim shares, its length for one with a block per claim.
+// Claim offsets are 64-bit: batch * n * 32 bytes passes 2^32 at 2^20
+// steps and 16 claims.
 //
 // Each kernel's bound (bytes or integer multiply-adds) is noted in
 // ops/plimbs.py; the simple form here is a first, correct version.
@@ -390,25 +393,59 @@ struct CubeOp {
 // memory by cp.async ahead of the arithmetic, and one that prefetches
 // the next element in registers, both measured slower at 2^19; blocks
 // of 128 threads beat 256 for cube and tie for scale.
+//
+// Over a claim axis, claim c reads x at c * x_stride and s at
+// c * s_stride (0: shared by the claims); y and out are per claim. The
+// claim is blockIdx.y and each thread maps one element: a claim guard
+// and a grid-stride loop around the map measured slower for both ops.
 template <class Op>
-KERNEL stream_map_kernel(const Fe* __restrict__ x, const Fe* __restrict__ y,
-                         const Fe* __restrict__ s, Fe* __restrict__ out,
-                         uint32_t n) {
-  FOR_EACH(i, n) out[i] = Op::apply(x, y, s, i);
+OP_FN void stream_map_at(const Fe* __restrict__ x, uint32_t x_stride,
+                         const Fe* __restrict__ y, const Fe* __restrict__ s,
+                         uint32_t s_stride, Fe* __restrict__ out, uint32_t n,
+                         uint32_t c, uint32_t i) {
+  const size_t o = (size_t)c * n;
+  out[o + i] = Op::apply(x + (size_t)c * x_stride, y ? y + o : y,
+                         s ? s + (size_t)c * s_stride : s, i);
 }
 
+// Cube reads and writes only per-claim arrays of one length, so its
+// claims are one flat array and its map needs no claim index (which cost
+// it 5% at 2^19).
 template <class Op>
-int stream_map(const Fe* x, const Fe* y, const Fe* s, Fe* out, uint32_t n,
+KERNEL flat_map_kernel(const Fe* __restrict__ x, Fe* __restrict__ out,
+                       uint32_t n) {
+  FOR_EACH(i, n) out[i] = Op::apply(x, nullptr, nullptr, i);
+}
+
+#ifdef __CUDACC__
+constexpr uint32_t kMapThreads = 128;
+
+template <class Op>
+__global__ void stream_map_kernel(const Fe* __restrict__ x, uint32_t x_stride,
+                                  const Fe* __restrict__ y,
+                                  const Fe* __restrict__ s, uint32_t s_stride,
+                                  Fe* __restrict__ out, uint32_t n) {
+  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) stream_map_at<Op>(x, x_stride, y, s, s_stride, out, n,
+                               blockIdx.y, i);
+}
+#endif
+
+template <class Op>
+int stream_map(const Fe* x, uint32_t x_stride, const Fe* y, const Fe* s,
+               uint32_t s_stride, Fe* out, uint32_t n, uint32_t batch,
                void* stream) {
 #ifdef __CUDACC__
-  constexpr uint32_t threads = 128;
-  if (n)
-    stream_map_kernel<Op><<<(n + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(x, y, s, out, n);
+  if (n && batch)
+    stream_map_kernel<Op><<<dim3((n + kMapThreads - 1) / kMapThreads, batch),
+                            kMapThreads, 0, (cudaStream_t)stream>>>(
+        x, x_stride, y, s, s_stride, out, n);
   return (int)cudaGetLastError();
 #else
   (void)stream;
-  stream_map_kernel<Op>(x, y, s, out, n);
+  for (uint32_t c = 0; c < batch; ++c)
+    for (uint32_t i = 0; i < n; ++i)
+      stream_map_at<Op>(x, x_stride, y, s, s_stride, out, n, c, i);
   return 0;
 #endif
 }
@@ -515,27 +552,71 @@ KERNEL fold4_kernel(const Fe* __restrict__ values, const Fe* __restrict__ ip,
 
 // A7/A8: elementwise field ops with periodic operands (replace
 // _mul_kernel via mul_t and mul_tab_t, and _add_kernel and _sub_kernel
-// via _ew). Each operand is read as x[i % len]: a full
+// via _ew), one template. Each operand is read as x[i % len]: a full
 // array (len = n), a periodic table (len = 8, or a constant column's
 // extension) or a constant (len = 1), so no tiled or broadcast copy
-// is ever built.
-KERNEL mul_kernel(const Fe* __restrict__ a, uint32_t a_len,
-                  const Fe* __restrict__ b, uint32_t b_len,
-                  Fe* __restrict__ out, uint32_t n) {
-  FOR_EACH(i, n) { out[i] = field::mul(a[i % a_len], b[i % b_len]); }
+// is ever built. Over a claim axis, claim c reads its operand block at
+// c * stride: stride 0 for an operand the claims share (x - last, a
+// constant column, a constant), len for one per claim (a column, or a
+// claim's 8-periodic Fiat-Shamir table). Flattening [B, n] and reading
+// a per-claim table as t[i % (8B)] would hand claim c the others'.
+struct MulOp {
+  OP_FN Fe apply(const Fe& a, const Fe& b) { return field::mul(a, b); }
+};
+
+struct AddOp {
+  OP_FN Fe apply(const Fe& a, const Fe& b) { return field::add(a, b); }
+};
+
+struct SubOp {
+  OP_FN Fe apply(const Fe& a, const Fe& b) { return field::sub(a, b); }
+};
+
+template <class Op>
+KERNEL binary_kernel(const Fe* __restrict__ a, uint32_t a_len,
+                     uint32_t a_stride, const Fe* __restrict__ b,
+                     uint32_t b_len, uint32_t b_stride,
+                     Fe* __restrict__ out, uint32_t n, uint32_t batch) {
+  FOR_EACH_CLAIM(c, batch) {
+    const Fe* __restrict__ ac = a + (size_t)c * a_stride;
+    const Fe* __restrict__ bc = b + (size_t)c * b_stride;
+    Fe* __restrict__ oc = out + (size_t)c * n;
+    FOR_EACH(i, n) { oc[i] = Op::apply(ac[i % a_len], bc[i % b_len]); }
+  }
 }
 
-KERNEL add_kernel(const Fe* __restrict__ a, uint32_t a_len,
-                  const Fe* __restrict__ b, uint32_t b_len,
-                  Fe* __restrict__ out, uint32_t n) {
-  FOR_EACH(i, n) { out[i] = field::add(a[i % a_len], b[i % b_len]); }
+// The MiMC trace over a claim batch (the counterpart of the lax.scan of
+// trace_batch_device, starks_tpu/models/mimc.py; no Pallas kernel):
+// trace[c][0] = x0[c], trace[c][i + 1] = trace[c][i]^3 + k[i % n_k].
+// The recurrence is sequential, so each thread runs one claim through
+// every step; the round constants sit in shared memory. Blocks of one
+// warp spread the claims over the SMs: a step is a chain of dependent
+// modmuls, bound by their latency, not by any shared resource.
+FIELD_FN void mimc_trace_claim(Fe x, const Fe* consts, uint32_t n_k, Fe* out,
+                               uint32_t steps) {
+  out[0] = x;
+  for (uint32_t i = 0, j = 0; i + 1 < steps; ++i) {
+    x = field::add(field::cube(x), consts[j]);
+    out[i + 1] = x;
+    j = j + 1 == n_k ? 0 : j + 1;
+  }
 }
 
-KERNEL sub_kernel(const Fe* __restrict__ a, uint32_t a_len,
-                  const Fe* __restrict__ b, uint32_t b_len,
-                  Fe* __restrict__ out, uint32_t n) {
-  FOR_EACH(i, n) { out[i] = field::sub(a[i % a_len], b[i % b_len]); }
+#ifdef __CUDACC__
+constexpr uint32_t kTraceThreads = 32;
+
+__global__ void mimc_trace_kernel(const Fe* __restrict__ x0,
+                                  const Fe* __restrict__ consts,
+                                  uint32_t n_k, Fe* __restrict__ out,
+                                  uint32_t steps, uint32_t batch) {
+  extern __shared__ Fe k_sh[];
+  for (uint32_t j = threadIdx.x; j < n_k; j += blockDim.x) k_sh[j] = consts[j];
+  __syncthreads();
+  const uint32_t c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < batch) mimc_trace_claim(x0[c], k_sh, n_k, out + (size_t)c * steps,
+                                  steps);
 }
+#endif
 
 #define F(ptr) ((const Fe*)(ptr))
 #define W(ptr) ((Fe*)(ptr))
@@ -638,11 +719,16 @@ int starks_ntt_dit(const void* x, const void* table, void* out,
   return 0;
 }
 
-// x * s, or acc + x * s when acc is not null.
-int starks_scale(const void* x, const void* s, const void* acc, void* out,
-                 uint32_t n, void* stream) {
-  return acc ? stream_map<ScaleAccOp>(F(x), F(acc), F(s), W(out), n, stream)
-             : stream_map<ScaleOp>(F(x), nullptr, F(s), W(out), n, stream);
+// x * s, or acc + x * s when acc is not null, over `batch` claims of n
+// elements: claim c reads x at c * x_stride and s at c * s_stride (0:
+// shared); acc and out are per claim.
+int starks_scale(const void* x, uint32_t x_stride, const void* s,
+                 uint32_t s_stride, const void* acc, void* out, uint32_t n,
+                 uint32_t batch, void* stream) {
+  return acc ? stream_map<ScaleAccOp>(F(x), x_stride, F(acc), F(s), s_stride,
+                                      W(out), n, batch, stream)
+             : stream_map<ScaleOp>(F(x), x_stride, nullptr, F(s), s_stride,
+                                   W(out), n, batch, stream);
 }
 
 // The D/B, L and fold4 maps over `batch` claims ([batch, n] arrays; the
@@ -674,23 +760,60 @@ int starks_fold4(const void* values, const void* ip, const void* sx,
          W(out), q, shift, batch);
 }
 
-int starks_mul(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
-               void* out, uint32_t n, void* stream) {
-  LAUNCH(mul_kernel, n, 1u, stream, F(a), a_len, F(b), b_len, W(out), n);
+// a (op) b over `batch` claims of n elements: each operand read
+// periodically at its length, and at its stride per claim (0: shared).
+#define BINARY_ENTRY(name, Op)                                               \
+  int name(const void* a, uint32_t a_len, uint32_t a_stride, const void* b, \
+           uint32_t b_len, uint32_t b_stride, void* out, uint32_t n,        \
+           uint32_t batch, void* stream) {                                   \
+    LAUNCH(binary_kernel<Op>, n, batch, stream, F(a), a_len, a_stride, F(b), \
+           b_len, b_stride, W(out), n, batch);                               \
+  }
+BINARY_ENTRY(starks_mul, MulOp)
+BINARY_ENTRY(starks_add, AddOp)
+BINARY_ENTRY(starks_sub, SubOp)
+
+// The cube of `batch` claims of n elements: one flat array of batch * n
+// (below 2^32) elements.
+int starks_cube(const void* a, void* out, uint32_t n, uint32_t batch,
+                void* stream) {
+  const uint32_t total = n * batch;
+#ifdef __CUDACC__
+  if (total)
+    flat_map_kernel<CubeOp><<<(total + kMapThreads - 1) / kMapThreads,
+                              kMapThreads, 0, (cudaStream_t)stream>>>(
+        F(a), W(out), total);
+  return (int)cudaGetLastError();
+#else
+  (void)stream;
+  flat_map_kernel<CubeOp>(F(a), W(out), total);
+  return 0;
+#endif
 }
 
-int starks_add(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
-               void* out, uint32_t n, void* stream) {
-  LAUNCH(add_kernel, n, 1u, stream, F(a), a_len, F(b), b_len, W(out), n);
-}
+// `batch` MiMC traces of `steps` rows from the inputs x0 [batch] and the
+// n_k round constants (at most kMaxTraceConsts: they fill the 48 KB of
+// shared memory a launch gets without opting in).
+constexpr uint32_t kMaxTraceConsts = (48u << 10) / sizeof(Fe);
 
-int starks_sub(const void* a, uint32_t a_len, const void* b, uint32_t b_len,
-               void* out, uint32_t n, void* stream) {
-  LAUNCH(sub_kernel, n, 1u, stream, F(a), a_len, F(b), b_len, W(out), n);
-}
-
-int starks_cube(const void* a, void* out, uint32_t n, void* stream) {
-  return stream_map<CubeOp>(F(a), nullptr, nullptr, W(out), n, stream);
+int starks_mimc_trace(const void* x0, const void* consts, uint32_t n_k,
+                      void* out, uint32_t steps, uint32_t batch,
+                      void* stream) {
+  if (n_k == 0 || n_k > kMaxTraceConsts) return -1;
+#ifdef __CUDACC__
+  if (steps && batch)
+    mimc_trace_kernel<<<(batch + kTraceThreads - 1) / kTraceThreads,
+                        kTraceThreads, n_k * sizeof(Fe),
+                        (cudaStream_t)stream>>>(F(x0), F(consts), n_k, W(out),
+                                                steps, batch);
+  return (int)cudaGetLastError();
+#else
+  (void)stream;
+  for (uint32_t c = 0; c < batch; ++c)
+    mimc_trace_claim(F(x0)[c], F(consts), n_k, W(out) + (size_t)c * steps,
+                     steps);
+  return 0;
+#endif
 }
 
 }  // extern "C"

@@ -4,10 +4,13 @@ The canonical single-register AIR instance (SURVEY §3.1 `starks/mimc.py`):
 steps-1 rounds of x <- x^3 + c[i mod len(c)] (mod p). The trace is
 sequential per proof, so it runs on the host, in the native runtime
 (`trace_limbs`; `trace_host` is its plain bigint version), and is
-uploaded whole (2 MB at 2^16 steps).
+uploaded whole (2 MB at 2^16 steps). `trace_batch_device` runs the
+traces of a claim batch on the card instead, one thread per claim.
 """
 
+from ..ops import plimbs
 from ..utils import native
+from ..utils.conversions import ints_to_tensor
 
 MODULUS = 2**256 - 351 * 2**32 + 1
 
@@ -31,6 +34,23 @@ def trace_limbs(inp: int, steps: int, round_constants):
     from the native runtime (utils/native.py), as the JAX package's
     `trace_limbs` (starks_tpu/models/mimc.py:52) reads its trace."""
     return native.mimc_trace(inp, steps, round_constants)
+
+
+def trace_batch_device(inps, steps: int, round_constants, device=None):
+    """The traces of a claim batch on the device: [B, steps, 8] int32 in
+    the port's claim-major layout, row i of claim c its state after i
+    rounds from inps[c]. The counterpart of the JAX package's
+    `trace_batch_device` (starks_tpu/models/mimc.py:73, a `lax.scan`
+    over [steps, B, 16] limbs), run by `plimbs.mimc_trace`: one kernel
+    launch, a thread per claim. No prover calls it, as in the JAX
+    package (the provers take their traces from `trace_limbs`).
+    `device` None means "cuda"; `device="cpu"` runs the plain
+    version."""
+    from ..prover import _resolve_device
+    device = _resolve_device(device)
+    x0 = ints_to_tensor([x % MODULUS for x in inps], device)
+    consts = ints_to_tensor([c % MODULUS for c in round_constants], device)
+    return plimbs.mimc_trace(x0, consts, steps)
 
 
 def _air_step(state, consts):

@@ -27,15 +27,16 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     "starks_ntt_dif": [_P, _P, _P, _P, _P, _U, _U, _U, _P],
     "starks_ntt_dit": [_P, _P, _P, _P, _U, _U, _U, _U, _P],
-    "starks_scale": [_P, _P, _P, _P, _U, _P],
+    "starks_scale": [_P, _U, _P, _U, _P, _P, _U, _U, _P],
     "starks_db_map": [_P, _P, _P, _P, _U, _P, _U, _P, _P, _P, _P, _P, _P,
                       _U, _U, _U, _P],
     "starks_l_map": [_P, _P, _P, _P, _U, _P, _U, _P, _U, _U, _P],
     "starks_fold4": [_P, _P, _P, _P, _P, _U, _U, _U, _P],
-    "starks_mul": [_P, _U, _P, _U, _P, _U, _P],
-    "starks_add": [_P, _U, _P, _U, _P, _U, _P],
-    "starks_sub": [_P, _U, _P, _U, _P, _U, _P],
-    "starks_cube": [_P, _P, _U, _P],
+    "starks_mul": [_P, _U, _U, _P, _U, _U, _P, _U, _U, _P],
+    "starks_add": [_P, _U, _U, _P, _U, _U, _P, _U, _U, _P],
+    "starks_sub": [_P, _U, _U, _P, _U, _U, _P, _U, _U, _P],
+    "starks_cube": [_P, _P, _U, _U, _P],
+    "starks_mimc_trace": [_P, _P, _U, _P, _U, _U, _P],
 }
 
 _LIB = None

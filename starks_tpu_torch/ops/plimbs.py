@@ -10,12 +10,14 @@ and is what the CPU tests hold against the JAX package. `LAUNCHES`
 counts each wrapper's kernel launches (`dif_transform` and
 `dit_transform` make one per pass).
 
-The five kernels of the MiMC proof (`dif_transform`, `dit_transform`,
-`db_map`, `l_map`, `fold4`) also take a claim axis, as the JAX batch
-prover's vmap of them does: arrays [B, n, 8], and per-claim operands
-with the same leading B, in one launch for all B claims (MAX_CLAIMS at
-most). Shared tables keep their unbatched shape. Their plain versions
-take the same leading axis by broadcasting.
+Every kernel also takes a claim axis, as the JAX batch provers' vmap
+of them does: arrays [B, n, 8], and per-claim operands with the same
+leading B, in one launch for all B claims (MAX_CLAIMS at most). Shared
+tables keep their unbatched shape. The AIR's elementwise ops (`mul`,
+`add`, `sub`, `scale`, `cube`) take either form for each operand: an
+[L, 8] operand is shared by the claims, a [B, L, 8] one is per claim.
+The plain versions take the same leading axis by broadcasting.
+`mimc_trace` runs the MiMC recurrence over a claim batch.
 
 Bounds on the card (32-byte elements, n elements per array): bytes over
 3.35 TB/s against 32-bit integer multiply-adds over the card's peak
@@ -36,7 +38,7 @@ L16 = fl.to_limbs16
 
 LAUNCHES = dict.fromkeys(
     ["dif_pass", "dit_pass", "scale", "db_map", "l_map", "fold4", "mul",
-     "add", "sub", "cube"], 0)
+     "add", "sub", "cube", "mimc_trace"], 0)
 
 # Stages per DIF or DIT pass: at most DIF_PASS_MAX_STAGES (a tile of 2^k
 # elements in shared memory), spread evenly over the fewest passes.
@@ -118,6 +120,22 @@ def _check_per_claim(x, what: str, *operands, rows: bool = False):
             raise ValueError(f"{what} must be {'[L, 8]' if rows else '[8]'}"
                              f" per claim, with the leading axes "
                              f"{lead} of the array")
+
+
+def _batch_of(*operands) -> int:
+    """The claims B that elementwise operands agree on, each [L, 8]
+    (shared) or [B, L, 8] (per claim); 0 when all are shared."""
+    claims = {_claims(t) for t in operands if t is not None and t.dim() == 3}
+    if len(claims) > 1:
+        raise ValueError(f"per-claim operands disagree on the claims: "
+                         f"{sorted(claims)}")
+    return claims.pop() if claims else 0
+
+
+def _stride(t) -> int:
+    """Elements between the claims' blocks of an elementwise operand:
+    0 for a shared [L, 8], L for a per-claim [B, L, 8]."""
+    return t.shape[-2] if t.dim() == 3 else 0
 
 
 def _check_tables(*tables):
@@ -286,28 +304,38 @@ def dit_transform(x, table, k: int | None = None, ext: int = 1):
 # -- A2: scale ----------------------------------------------------------
 
 def scale_plain(x, s, acc=None):
-    y = fl.mul(x, s[None])
+    y = fl.mul(x, s[..., None, :])
     return y if acc is None else add_plain(acc, y)
 
 
 def scale(x, s, acc=None):
     """x * s for a scalar element s [8], or acc + x * s with an
-    accumulator acc [n, 8] (an AIR's running sum of scaled terms, so no
-    add launch follows).
+    accumulator acc (an AIR's running sum of scaled terms, so no add
+    launch follows). Over a claim axis, x is [L, 8] (shared) or
+    [B, L, 8], s is [8] (shared) or [B, 8] (claim c's scalar), and acc
+    and the result are [B, L, 8]: an AIR's boundary interpolant sums
+    shared basis tables times each claim's boundary values, its L sum
+    each claim's D columns times its own weights.
 
     Replaces `_scale_kernel` (starks_tpu/ops/plimbs.py:175, launched by
     `scale_t`, :400), and with acc the `_add_kernel` launch (`add_t`,
     :301) that adds its result into the sum. Runs `stream_map_kernel`
     (csrc/kernels.cu), as cube does. Bound: bytes, 64n, or 96n with
-    acc."""
-    if s.shape != (NUM_WORDS,):
-        raise ValueError("s must be one [8] element")
-    if acc is not None and acc.shape != x.shape:
-        raise ValueError("acc must have the shape of x")
+    acc (n output elements; a shared x is read once)."""
+    if x.dim() not in (2, 3) or x.shape[-2] == 0:
+        raise ValueError("x must be [L, 8] or [B, L, 8]")
+    if s.shape[-1:] != (NUM_WORDS,) or s.dim() not in (1, 2):
+        raise ValueError("s must be one [8] element, or [B, 8]")
+    batch = _batch_of(x, s.unsqueeze(-2) if s.dim() == 2 else None, acc)
+    shape = (batch, *x.shape[-2:]) if batch else x.shape
+    if acc is not None and acc.shape != shape:
+        raise ValueError(f"acc must be {tuple(shape)}")
     if not _on_card(x, s, acc):
         return scale_plain(x, s, acc)
-    out = torch.empty_like(x)
-    _launch("scale", x.device, x, s, acc, out, x.shape[0])
+    n = x.shape[-2]
+    out = torch.empty(shape, dtype=torch.int32, device=x.device)
+    _launch("scale", x.device, x, _stride(x), s,
+            1 if s.dim() == 2 else 0, acc, out, n, max(batch, 1))
     return out
 
 
@@ -459,15 +487,16 @@ def fold4(values, ip, sx, eta, shift: int = 0):
 # -- A7/A8: elementwise ops with periodic operands ----------------------
 
 def _periodic16(x, n: int):
-    """[L, 8] operand read as x[i % L] for i < n, as [n, 16] limbs."""
+    """[..., L, 8] operand read as x[i % L] for i < n, as [..., n, 16]
+    limbs."""
     limbs = L16(x)
-    if x.shape[0] == n:
+    if x.shape[-2] == n:
         return limbs
-    return limbs[torch.arange(n, device=x.device) % x.shape[0]]
+    return limbs[..., torch.arange(n, device=x.device) % x.shape[-2], :]
 
 
 def _binary_plain(op16, a, b):
-    n = max(a.shape[0], b.shape[0])
+    n = max(a.shape[-2], b.shape[-2])
     return fl.from_limbs16(op16(_periodic16(a, n), _periodic16(b, n)))
 
 
@@ -488,15 +517,22 @@ def cube_plain(a):
 
 
 def _binary(name: str, plain, a, b):
-    _check_tables(a, b)
-    n = max(a.shape[0], b.shape[0])
-    if n % a.shape[0] or n % b.shape[0]:
-        raise ValueError(f"operand lengths {a.shape[0]} and {b.shape[0]} "
-                         f"must divide the output length {n}")
+    for t in (a, b):
+        if t.dim() not in (2, 3) or t.shape[-2] == 0:
+            raise ValueError("operands must be non-empty [L, 8] or "
+                             "[B, L, 8]")
+    batch = _batch_of(a, b)
+    la, lb = a.shape[-2], b.shape[-2]
+    n = max(la, lb)
+    if n % la or n % lb:
+        raise ValueError(f"operand lengths {la} and {lb} must divide the "
+                         f"output length {n}")
     if not _on_card(a, b):
         return plain(a, b)
-    out = torch.empty((n, NUM_WORDS), dtype=torch.int32, device=a.device)
-    _launch(name, a.device, a, a.shape[0], b, b.shape[0], out, n)
+    shape = (batch, n, NUM_WORDS) if batch else (n, NUM_WORDS)
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    _launch(name, a.device, a, la, _stride(a), b, lb, _stride(b), out, n,
+            max(batch, 1))
     return out
 
 
@@ -505,11 +541,16 @@ def mul(a, b):
     b [Lb, 8] read periodically (a[i % La], b[i % Lb]); each length
     divides n. A full array, an 8-periodic table and a constant ([1, 8])
     all take this one path, so no tiled or broadcast copy is built.
+    Over a claim axis, either operand may be [B, L, 8] (claim c reads
+    its own block, x[c][i % L]: a column, or a claim's Fiat-Shamir
+    table) or [L, 8] (shared by the claims), and the result is
+    [B, n, 8].
 
     Replaces `_mul_kernel` (starks_tpu/ops/plimbs.py:149, launched by
     `mul_t`, :252, and by `mul_tab_t` for a periodic table, :436).
-    Bound: bytes, 32 * (La + Lb + n): 96n for full operands, ~64n with a
-    table (one modmul per element, 148 multiply-adds, is below it)."""
+    Bound: bytes, 32 * (La + Lb + n) per claim, a shared operand read
+    once: 96n for full operands, ~64n with a table (one modmul per
+    element, 148 multiply-adds, is below it)."""
     return _binary("mul", mul_plain, a, b)
 
 
@@ -531,15 +572,64 @@ def sub(a, b):
 
 
 def cube(a):
-    """a^3 over [n, 8].
+    """a^3 over [n, 8], or over the B claims of [B, n, 8].
 
     Replaces `_cube_kernel` (starks_tpu/ops/plimbs.py:289, launched by
-    `cube_t` through `_ew`, :301). Runs `stream_map_kernel`
-    (csrc/kernels.cu), as scale does. Bound: bytes, 64n, narrowly over
-    its modmul and square per element (240 multiply-adds)."""
-    _check_tables(a)
+    `cube_t` through `_ew`, :301). Runs `flat_map_kernel`
+    (csrc/kernels.cu), scale's frame over the B claims as one flat
+    array. Bound: bytes, 64n, narrowly over its modmul and square per
+    element (240 multiply-adds)."""
+    if a.dim() not in (2, 3) or a.shape[-2] == 0:
+        raise ValueError("a must be non-empty [n, 8] or [B, n, 8]")
+    batch = _claims(a)
+    if a.numel() // NUM_WORDS >= 2**31:
+        raise ValueError("cube maps fewer than 2^31 elements a launch")
     if not _on_card(a):
         return cube_plain(a)
     out = torch.empty_like(a)
-    _launch("cube", a.device, a, out, a.shape[0])
+    _launch("cube", a.device, a, out, a.shape[-2], batch)
+    return out
+
+
+# -- the MiMC trace over a claim batch (no Pallas counterpart) ------------
+
+def mimc_trace_plain(x0, consts, steps: int):
+    """The recurrence step by step, vectorised over the claims: plain
+    cube and add on [B, 8]."""
+    rows = [x0]
+    for i in range(steps - 1):
+        k = consts[i % consts.shape[0]]
+        rows.append(fl.add(fl.cube(rows[-1]), k[None]))
+    return torch.stack(rows, dim=1)
+
+
+# Round constants the trace kernel holds in shared memory (48 KB).
+MAX_TRACE_CONSTS = 1536
+
+
+def mimc_trace(x0, consts, steps: int):
+    """MiMC traces of B claims: x0 [B, 8] (reduced inputs) and the round
+    constants [n_k, 8] give [B, steps, 8] with trace[c][0] = x0[c] and
+    trace[c][i + 1] = trace[c][i]^3 + consts[i % n_k].
+
+    The counterpart of the `lax.scan` in `trace_batch_device`
+    (starks_tpu/models/mimc.py:65-80), which is no Pallas kernel. Runs
+    `mimc_trace_kernel` (csrc/kernels.cu): one thread per claim through
+    every step, the constants in shared memory. Bound: the larger of
+    its bytes (32 * B * steps written) and its operations (a cube and an
+    add per claim and step); each claim's steps are a chain of dependent
+    modmuls, so with few claims their latency holds it far above both."""
+    if x0.dim() != 2 or x0.shape[0] == 0:
+        raise ValueError("x0 must be [B, 8]")
+    if consts.dim() != 2 or not 1 <= consts.shape[0] <= MAX_TRACE_CONSTS:
+        raise ValueError(f"consts must be [n_k, 8], 1 <= n_k <= "
+                         f"{MAX_TRACE_CONSTS}")
+    if steps < 1:
+        raise ValueError("steps must be positive")
+    if not _on_card(x0, consts):
+        return mimc_trace_plain(x0, consts, steps)
+    out = torch.empty((x0.shape[0], steps, NUM_WORDS), dtype=torch.int32,
+                      device=x0.device)
+    _launch("mimc_trace", x0.device, x0, consts, consts.shape[0], out, steps,
+            x0.shape[0])
     return out

@@ -3,7 +3,9 @@ steps: its fib-square proof and its proof of MiMC written as an AIR
 (the path that runs the cube kernel, with a constant column) equal the
 JAX package's `prove_air` byte for byte, both verifiers accept them and
 reject tampered proofs, the declarative form gives the same bytes, and
-the MiMC AIR's output is mimc_forward's.
+the MiMC AIR's output is mimc_forward's. Over a claim axis,
+`prove_air_batch_fused` gives each claim JAX `prove_air`'s bytes and
+the port's `prove_air`'s.
 
 The JAX proofs cost XLA:CPU compiles of one to two minutes, so they run
 once, in a fresh interpreter (tests/_subproc.py says why), started when
@@ -32,6 +34,7 @@ ROOT = Path(__file__).resolve().parent.parent
 STEPS = 64
 CONSTS = [(i ** 7) ^ 42 for i in range(16)]
 JAX_TIMEOUT_S = 1200
+BATCH_CLAIMS = [[1, 1], [2, 3], [5, 8]]     # proved in chunks of 2
 
 # The child asks the kernel to kill it when its parent dies
 # (PR_SET_PDEATHSIG), so a test run cut short never leaves the compile
@@ -53,8 +56,12 @@ mimc = AIR(width=1, step_fn=lambda s, c: [(s[0] ** 3 + c[0]) % M],
                ops.sub(nxt[0], ops.add(ops.cube(cur[0]), c[0]))],
            num_constraints=1, constants=[[(i ** 7) ^ 42 for i in range(16)]],
            boundary_points=lambda n: [(0, 0), (n - 1, 0)])
-proofs = {"fib": prove_air(fib_square_air(), [1, 1], steps),
+fib = fib_square_air()
+proofs = {"fib": prove_air(fib, [1, 1], steps),
           "mimc": prove_air(mimc, [3], steps)}
+# More claims of the same AIR and shapes: no new compile.
+for claim in ([2, 3], [5, 8]):
+    proofs[f"fib{claim}"] = prove_air(fib, claim, steps)
 with open(sys.argv[1], "wb") as f:
     pickle.dump(proofs, f)
 """
@@ -62,9 +69,9 @@ with open(sys.argv[1], "wb") as f:
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_air_run(tmp_path_factory):
-    """JAX `prove_air` of fib-square ([1, 1]) and of MiMC as an AIR ([3])
-    at STEPS in a subprocess, running while this module's other tests
-    do: (process, proof file)."""
+    """JAX `prove_air` of fib-square (BATCH_CLAIMS) and of MiMC as an AIR
+    ([3]) at STEPS in a subprocess, running while this module's other
+    tests do: (process, proof file)."""
     out = tmp_path_factory.mktemp("jax_air") / "proof.pkl"
     # The compile is nearly all of the cost and the proof is tiny: with
     # XLA's backend optimisation off it takes half the CPU time. Integer
@@ -173,9 +180,64 @@ def test_prove_air_needs_a_card_without_device(monkeypatch):
 
 
 @pytest.fixture(scope="module")
+def batch_proofs():
+    return stt.prove_air_batch_fused(fib.fib_square_air(), BATCH_CLAIMS,
+                                     STEPS, chunk=2, device="cpu")
+
+
+def test_batch_equals_serial_prove_air(batch_proofs, fib_proof):
+    """Each claim of a batch in chunks of 2 (the last chunk short) is
+    the port's one-claim proof of that claim."""
+    assert len(batch_proofs) == len(BATCH_CLAIMS)
+    assert batch_proofs[0] == fib_proof[0]
+    for claim, proof in zip(BATCH_CLAIMS[1:], batch_proofs[1:]):
+        assert proof == stt.prove_air(fib.fib_square_air(), claim, STEPS,
+                                      device="cpu")
+
+
+@pytest.mark.parametrize("verifier", sorted(VERIFIERS))
+def test_batch_proofs_verify(batch_proofs, verifier):
+    for (a, b), proof in zip(BATCH_CLAIMS, batch_proofs):
+        assert VERIFIERS[verifier](proof)
+        assert dict(proof[5]) == {(0, 0): a, (0, 1): b, (
+            STEPS - 1, 1): fib.fib_square_output(a, b, STEPS)}
+
+
+@pytest.mark.parametrize("verifier", sorted(VERIFIERS))
+def test_batch_changed_boundary_rejected(batch_proofs, verifier):
+    bad = copy.deepcopy(batch_proofs[2])
+    bad[5] = [(k, (v + 1) % fib.MODULUS) if k == (0, 0) else (k, v)
+              for k, v in bad[5]]
+    with pytest.raises(AssertionError):
+        VERIFIERS[verifier](bad)
+
+
+def test_mimc_as_air_batch_equals_serial():
+    """MiMC as an AIR (the cube kernel's path and a constant column)
+    over 2 claims: each equals its own `prove_air`."""
+    air = mimc_air(CONSTS)
+    got = stt.prove_air_batch_fused(air, [[3], [4]], STEPS, device="cpu")
+    for x, proof in zip((3, 4), got):
+        assert proof == stt.prove_air(air, [x], STEPS, device="cpu")
+        assert dict(proof[5])[(STEPS - 1, 0)] == mimc_forward(x, STEPS,
+                                                              CONSTS)
+
+
+def test_batch_rejects_bad_chunk_and_needs_a_card(monkeypatch):
+    air = fib.fib_square_air()
+    with pytest.raises(ValueError, match="chunk"):
+        stt.prove_air_batch_fused(air, BATCH_CLAIMS, STEPS, chunk=0,
+                                  device="cpu")
+    assert stt.prove_air_batch_fused(air, [], STEPS, device="cpu") == []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stt.prove_air_batch_fused(air, BATCH_CLAIMS, STEPS)
+
+
+@pytest.fixture(scope="module")
 def jax_proofs(jax_air_run):
     """The JAX proofs, once the subprocess started with this module has
-    written them: {"fib": ..., "mimc": ...}."""
+    written them: {"fib": ..., "mimc": ..., "fib[2, 3]": ..., ...}."""
     proc, out = jax_air_run
     stdout, stderr = proc.communicate(timeout=JAX_TIMEOUT_S)
     assert proc.returncode == 0, f"JAX prove_air failed:\n{stderr[-4000:]}"
@@ -194,3 +256,12 @@ def test_mimc_as_air_equals_jax_prove_air(jax_proofs):
     and a constant column, byte for byte with JAX `prove_air`."""
     proof = stt.prove_air(mimc_air(CONSTS), [3], STEPS, device="cpu")
     assert proof == jax_proofs["mimc"]
+
+
+def test_batch_equals_jax_prove_air(batch_proofs, jax_proofs):
+    """Every claim of `prove_air_batch_fused` equals JAX `prove_air` for
+    that claim, byte for byte."""
+    want = [jax_proofs["fib"]] + [jax_proofs[f"fib{c}"]
+                                  for c in BATCH_CLAIMS[1:]]
+    for proof, ref in zip(batch_proofs, want):
+        assert proof == ref

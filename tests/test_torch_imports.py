@@ -34,7 +34,9 @@ def test_import_leaves_jax_and_jax_package_out():
     loaded = json.loads(res.stdout.strip().splitlines()[-1])
     assert {"starks_tpu_torch.prover", "starks_tpu_torch.parallel.mesh",
             "starks_tpu_torch.parallel.ntt4step",
-            "starks_tpu_torch.parallel.launch"} <= set(loaded)
+            "starks_tpu_torch.parallel.launch",
+            "starks_tpu_torch.algebra.polynomial",
+            "starks_tpu_torch.algebra.finite_field"} <= set(loaded)
     assert not [m for m in loaded if m == "jax" or m.startswith("jax.")]
     assert not [m for m in loaded if _is_jax_package(m)]
     assert "oracle" not in loaded

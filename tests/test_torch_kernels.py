@@ -388,7 +388,8 @@ def _host_cases():
                      [x, ptab, None], [n, 3, 1], (n, 8), (n, 8)),
         "dit_pass": (plimbs.dit_transform_plain(x, tab),  # passes 2, 3, 3
                      [x, tab], [n, 3, 0, 1], (n, 8), (n, 8)),
-        "scale": (plimbs.scale_plain(x, s1), [x, s1, None], [n], (n, 8)),
+        "scale": (plimbs.scale_plain(x, s1), [x, 0, s1, 0, None], [n, 1],
+                  (n, 8)),
         "db_map": (plimbs.db_map_plain(p, xs, k, z, iz2, s1, s2, s3, 8),
                    [p, None, xs, k, 64, z, 8, iz2, s1, s2, s3], [n, 8, 1],
                    (n, 8), (n, 8)),
@@ -396,10 +397,15 @@ def _host_cases():
                   [d, p, b, cp, 8, cb, 8], [n, 1], (n, 8)),
         "fold4": (plimbs.fold4_plain(x[:q], tab, s1, s2, 4),  # round 2
                   [x[:q], tab, s1, s2], [q // 4, 4, 1], (q // 4, 8)),
-        "mul": (plimbs.mul_plain(x, cp), [x, n, cp, 8], [n], (n, 8)),
-        "add": (plimbs.add_plain(s1[None], p), [s1, 1, p, n], [n], (n, 8)),
-        "sub": (plimbs.sub_plain(z, xs), [z, 8, xs, n], [n], (n, 8)),
-        "cube": (plimbs.cube_plain(x), [x], [n], (n, 8)),
+        "mul": (plimbs.mul_plain(x, cp), [x, n, 0, cp, 8, 0], [n, 1],
+                (n, 8)),
+        "add": (plimbs.add_plain(s1[None], p), [s1, 1, 0, p, n, 0], [n, 1],
+                (n, 8)),
+        "sub": (plimbs.sub_plain(z, xs), [z, 8, 0, xs, n, 0], [n, 1],
+                (n, 8)),
+        "cube": (plimbs.cube_plain(x), [x], [n, 1], (n, 8)),
+        "mimc_trace": (plimbs.mimc_trace_plain(x[:3], k[:5], 9),  # n_k odd
+                       [x[:3], k[:5], 5], [9, 3], (3, 9, 8)),
     }
 
 
@@ -502,7 +508,7 @@ def test_host_cube_matches_ints_on_edge_values(host_kernels):
     va, vb = mul_edge_pairs(constructed=256)
     vals = sorted(set(va) | set(vb))
     a = ints_to_tensor(vals)
-    (out,) = _host_call(host_kernels, "starks_cube", [a], [len(vals)],
+    (out,) = _host_call(host_kernels, "starks_cube", [a], [len(vals), 1],
                         [(len(vals), 8)])
     assert out.equal(plimbs.cube_plain(a))
     assert [int.from_bytes(out[i].numpy().tobytes(), "little")
@@ -528,7 +534,8 @@ def test_host_mul_takes_any_value_below_2_256(host_kernels):
 
     n = len(va)
     (out,) = _host_call(host_kernels, "starks_mul",
-                        [words(va), n, words(vb), n], [n], [(n, 8)])
+                        [words(va), n, 0, words(vb), n, 0], [n, 1],
+                        [(n, 8)])
     assert out.equal(words([a * b % M for a, b in zip(va, vb)]))
 
 
@@ -563,8 +570,8 @@ def test_host_mul_matches_plain_on_edge_pairs(host_kernels):
     va, vb = mul_edge_pairs(constructed=256)
     a, b = ints_to_tensor(va), ints_to_tensor(vb)
     n = a.shape[0]
-    (out,) = _host_call(host_kernels, "starks_mul", [a, n, b, n], [n],
-                        [(n, 8)])
+    (out,) = _host_call(host_kernels, "starks_mul", [a, n, 0, b, n, 0],
+                        [n, 1], [(n, 8)])
     assert out.equal(plimbs.mul_plain(a, b))
     got = [int.from_bytes(out[i].numpy().tobytes(), "little")
            for i in range(0, n, 97)]
@@ -584,11 +591,11 @@ def test_host_stream_map_matches_plain(host_kernels, op, n):
         want, entry, ins = plimbs.cube_plain(x), "starks_cube", [x]
     elif op == "scale":
         want, entry, ins = plimbs.scale_plain(x, s), "starks_scale", [
-            x, s, None]
+            x, 0, s, 0, None]
     else:
         want, entry, ins = plimbs.scale_plain(x, s, acc), "starks_scale", [
-            x, s, acc]
-    (out,) = _host_call(host_kernels, entry, ins, [n], [(n, 8)])
+            x, 0, s, 0, acc]
+    (out,) = _host_call(host_kernels, entry, ins, [n, 1], [(n, 8)])
     assert out.equal(want)
 
 
@@ -616,15 +623,23 @@ def test_host_ntt_dif_drops_table0_as_plain(host_kernels):
 # -- the claim axis ---------------------------------------------------------
 
 CLAIMS = 3
-CLAIM_CASES = ["db_map", "dif_pass", "dit_pass", "dit_pass_compact", "fold4",
-               "l_map"]
+# Elementwise forms: "c" a per-claim operand [B, L, 8], "s" a shared one
+# [L, 8]; L = n (full), 8 (a periodic table) or 1 (a constant).
+ELEMENTWISE_FORMS = ["c,c", "c,s", "s,c", "c,c8", "s1,c"]
+SCALE_FORMS = ["xs", "xc", "acc,xs", "acc,xc", "acc,xs1"]
+CLAIM_CASES = (["db_map", "dif_pass", "dit_pass", "dit_pass_compact",
+                "fold4", "l_map", "cube"]
+               + [f"{op}[{f}]" for op in ("mul", "add", "sub")
+                  for f in ELEMENTWISE_FORMS]
+               + [f"scale[{f}]" for f in SCALE_FORMS])
 
 
 def _claim_cases():
     """name -> (wrapper, args, claimed, C entry, C inputs, C ints, output
-    shapes) for the five kernels of the MiMC path over CLAIMS claims
-    with distinct inputs and per-claim operands (`claimed` marks the
-    arguments with the claim axis; the rest are shared)."""
+    shapes) for each kernel over CLAIMS claims with distinct inputs and
+    per-claim operands (`claimed` marks the arguments with the claim
+    axis; the rest are shared): the five kernels of the MiMC path, and
+    the AIR's elementwise ops with each operand shared or per claim."""
     n, q, b = 256, 64, CLAIMS
 
     def per_claim(rows, seed):
@@ -641,7 +656,31 @@ def _claim_cases():
     k, z = _rand(64, 313)[1], _rand(8, 314)[1]
     s1, s2 = (_rand(1, s)[1][0] for s in (315, 316))
     full = (b, n, 8)
-    return {
+    cases = {}
+    # (operand, per claim) by form, for the left and the right operand.
+    sides = ({"c": (p, 1), "s": (xs, 0), "s1": (s1[None], 0)},
+             {"c": (d, 1), "s": (iz2, 0), "c8": (cp, 1)})
+    for op in ("mul", "add", "sub"):
+        for form in ELEMENTWISE_FORMS:
+            (ta, ca), (tb, cb_) = (side[f] for side, f in
+                                   zip(sides, form.split(",")))
+            la, lb = ta.shape[-2], tb.shape[-2]
+            cases[f"{op}[{form}]"] = (
+                getattr(plimbs, op), (ta, tb), (ca, cb_), "starks_" + op,
+                [ta, la, la * ca, tb, lb, lb * cb_], [n, b], [full])
+    ys = per_claim(1, 320)[:, 0]                 # each claim's scalar
+    acc1 = per_claim(1, 330)
+    for form in SCALE_FORMS:
+        xv, lx, cx = {"xs": (xs, n, 0), "xc": (p, n, 1),
+                      "xs1": (s1[None], 1, 0)}[form.split(",")[-1]]
+        acc = (d if lx == n else acc1) if form.startswith("acc") else None
+        cases[f"scale[{form}]"] = (
+            plimbs.scale, (xv, ys) + ((acc,) if acc is not None else ()),
+            (cx, 1, 1), "starks_scale", [xv, lx * cx, ys, 1, acc], [lx, b],
+            [(b, lx, 8)])
+    cases["cube"] = (plimbs.cube, (p,), (1,), "starks_cube", [p], [n, b],
+                     [full])
+    return cases | {
         "dif_pass": (plimbs.dif_transform, (x, ptab, 3, s1),
                      (1, 0, 0, 0), "starks_ntt_dif", [x, ptab, s1],
                      [n, 3, b], [full, full]),
@@ -699,6 +738,64 @@ def test_claim_axis_kernel_body_matches_plain(host_kernels, name):
     want = want if isinstance(want, tuple) else (want,)
     outs = _host_call(host_kernels, entry, ins, ints, out_shapes)
     assert all(o.equal(w) for o, w in zip(outs, want))
+
+
+def test_elementwise_claim_axis_rejects_mismatched_operands():
+    """Per-claim operands of mul, add, sub and scale must agree on the
+    claims, and scale's accumulator must have the result's shape."""
+    _, (p, d), *_ = _claim_cases()["mul[c,c]"]
+    for op in (plimbs.mul, plimbs.add, plimbs.sub):
+        with pytest.raises(ValueError, match="claims"):
+            op(p, d[:2])
+        with pytest.raises(ValueError):
+            op(p[:, :24], d)                       # 24 does not divide 256
+        with pytest.raises(ValueError):
+            op(p[None], d)                         # two leading axes
+    _, (x, ys, acc), *_ = _claim_cases()["scale[acc,xc]"]
+    with pytest.raises(ValueError, match="claims"):
+        plimbs.scale(x, ys[:2])
+    with pytest.raises(ValueError, match="acc"):
+        plimbs.scale(x[0], ys, acc[:, :8])
+    with pytest.raises(ValueError):
+        plimbs.scale(x, ys[None])
+    with pytest.raises(ValueError):
+        plimbs.cube(x[None])
+
+
+def test_host_mimc_trace_matches_native(host_kernels):
+    """mimc_trace_kernel's body as g++ builds it, over 3 claims at 64
+    steps with 64 round constants, equals each claim's native trace
+    (models.mimc.trace_limbs) and the plain version."""
+    from starks_tpu_torch.models import mimc
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    consts = [(i ** 7) ^ 42 for i in range(64)]
+    inps = [3, 4, M - 1]
+    x0, k = ints_to_tensor(inps), ints_to_tensor(consts)
+    (out,) = _host_call(host_kernels, "starks_mimc_trace", [x0, k, 64],
+                        [64, 3], [(3, 64, 8)])
+    assert out.equal(plimbs.mimc_trace_plain(x0, k, 64))
+    for c, x in enumerate(inps):
+        assert out[c].equal(torch.from_numpy(mimc.trace_limbs(x, 64,
+                                                              consts)))
+
+
+def test_mimc_trace_rejects_bad_arguments(host_kernels):
+    x0, k = _rand(3, 90)[1], _rand(8, 91)[1]
+    with pytest.raises(ValueError):
+        plimbs.mimc_trace(x0[0], k, 8)                 # x0 not [B, 8]
+    with pytest.raises(ValueError):
+        plimbs.mimc_trace(x0, k[:0], 8)                # no constants
+    with pytest.raises(ValueError):
+        plimbs.mimc_trace(x0, k[:1].expand(plimbs.MAX_TRACE_CONSTS + 1,
+                                          8), 8)
+    with pytest.raises(ValueError):
+        plimbs.mimc_trace(x0, k, 0)
+    # The C entry refuses what the wrapper refuses.
+    big = torch.zeros((plimbs.MAX_TRACE_CONSTS + 1, 8), dtype=torch.int32)
+    out = torch.empty((3, 8, 8), dtype=torch.int32)
+    assert host_kernels.starks_mimc_trace(
+        x0.data_ptr(), big.data_ptr(), big.shape[0], out.data_ptr(), 8, 3,
+        None) != 0
 
 
 @pytest.mark.parametrize("shards", [2, 4])

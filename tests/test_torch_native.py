@@ -109,3 +109,30 @@ def test_no_compiler_raises(monkeypatch, tmp_path):
         mimc.trace_limbs(3, 64, CONSTS)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         stt.mk_mimc_proof(3, 64, CONSTS, device="cpu")
+
+
+def test_trace_batch_device_equals_jax_and_native():
+    """The MiMC traces of a claim batch (on the CPU, `mimc_trace`'s plain
+    version) equal the JAX package's `trace_batch_device` ([steps, B, 16]
+    limbs, transposed to the port's claim-major layout) and each claim's
+    native trace, for 3 inputs at 64 steps (an input above p reduced)."""
+    import jax.numpy as jnp
+    from starks_tpu.models import mimc as jmimc
+    from starks_tpu.utils.conversions import ints_to_limbs
+    consts = [(i ** 7) ^ 42 for i in range(64)]
+    inps = [3, M - 1, M + 5]
+    got = mimc.trace_batch_device(inps, 64, consts, device="cpu")
+    want = jmimc.trace_batch_device(
+        jnp.asarray(ints_to_limbs([x % M for x in inps])), 64,
+        jnp.asarray(ints_to_limbs(consts)))
+    assert got.shape == (3, 64, 8) and got.dtype == torch.int32
+    assert got.equal(fl.from_jax_limbs(np.asarray(want).transpose(1, 0, 2)))
+    for c, x in enumerate(inps):
+        assert got[c].equal(torch.from_numpy(mimc.trace_limbs(x, 64,
+                                                              consts)))
+
+
+def test_trace_batch_device_needs_a_card_without_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mimc.trace_batch_device([3], 64, CONSTS)
