@@ -36,7 +36,11 @@ Phases (any failure exits non-zero and prints no result):
      claim or shared), each equal to its plain version and to 16
      one-claim launches, timed beside those launches and the bound that
      counts a shared operand once; the device MiMC trace
-     (`mimc_trace_kernel`) against its plain version, and
+     (`mimc_trace_kernel`) against its plain version, at the all-device
+     proof's shape (one claim, 2^16 steps; its first rows against the
+     plain version, all against the native trace) in ns per dependent
+     step, with 2048 round constants (more than shared memory holds:
+     read from device memory) against its plain version and timed, and
      `trace_batch_device` of 64 claims at 2^16 steps against the native
      host trace of each claim, timed beside it;
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
@@ -65,7 +69,8 @@ Phases (any failure exits non-zero and prints no result):
      a lower bound);
   8. every kernel's launches on each main path: the steady MiMC 2^16,
      fib-square 2^13 and 2^16 proofs, the MiMC-as-AIR proof, the batch
-     and AIR chunks and the device trace, each counted alone (counts
+     and AIR chunks, the all-device proofs and the device trace, each
+     counted alone (counts
      set to 0 just before it, read just after); each kernel > 0 on
      every path that runs it, no scale launch on the MiMC path (its 1/n
      is in the DIF transform), one DIF and one DIT transform for all of
@@ -96,8 +101,16 @@ Phases (any failure exits non-zero and prints no result):
      changed boundary rejected, stage times, peak memory, proofs/s at
      chunks of 16, 4 and 1 (4 claims), the host trace per claim; MiMC as
      an AIR over 4 claims at 2^13, each equal to its serial proof.
-Phase 8 also requires the config 4 paths and the device trace to launch
-only their kernels.
+  11. the all-device MiMC proof (`prover.mk_mimc_proof_fused(
+     device_trace=True)`: its trace built on the card by one launch of
+     the trace kernel), run after phase 9 and before the profiled
+     proofs, at 2^16 and 2^20 steps: each equal byte for byte to the
+     host-trace proof of phase 4 or 9 and verified, launching one trace
+     kernel and every other kernel as often as that proof; stage times
+     (the device trace a stage of its own) and the calls that wait for
+     the card.
+Phase 8 also requires the config 4 paths, the all-device proofs and the
+device trace to launch only their kernels.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -132,6 +145,9 @@ AIR_CHUNK = 16                # fib-square claims per AIR batch chunk
 MIMC_AIR_CLAIMS = 4           # MiMC as an AIR over a claim axis
 TRACE_CLAIMS = 64             # the device MiMC trace: claims x BIG_STEPS
 TRACE_CHECK_STEPS = 2 ** 6    # ... against its plain version
+TRACE_REPS = 5                # launches per timing of a 2^16-step trace
+GLOBAL_TRACE_CONSTS = 2048    # more than shared memory holds ...
+GLOBAL_CHECK_STEPS = 2 ** 12  # ... each read twice (native trace)
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
 # 32-bit integer multiply-adds at 64 per clock per SM (CUDA C++
@@ -184,6 +200,8 @@ BATCH = f"batch chunk of {BATCH_CHUNK} x MiMC {BIG_STEPS}"
 AIR_BATCH = f"AIR chunk of {AIR_CHUNK} x fib-square {BIG_STEPS}"
 TRACE = f"device MiMC trace, {TRACE_CLAIMS} x {BIG_STEPS}"
 MIMC4 = f"MiMC {CONFIG4_STEPS}"
+MIMC_DEV = f"MiMC {BIG_STEPS}, device trace"
+MIMC4_DEV = f"MiMC {CONFIG4_STEPS}, device trace"
 SHARDED = f"MiMC {{}} over {SHARDS} shards, per rank"
 MIMC4_SHARDED = SHARDED.format(CONFIG4_STEPS)
 # The sharded LDE is two four-step NTTs: DIF passes over a claim axis
@@ -199,6 +217,8 @@ PATH_KERNELS = {
     MIMC4: NTT_FRI + ["db_map", "l_map"],
     SHARDED.format(BIG_STEPS): SHARD_KERNELS,
     MIMC4_SHARDED: SHARD_KERNELS,
+    MIMC_DEV: NTT_FRI + ["db_map", "l_map", "mimc_trace"],
+    MIMC4_DEV: NTT_FRI + ["db_map", "l_map", "mimc_trace"],
     TRACE: ["mimc_trace"],
 }
 
@@ -469,11 +489,11 @@ def device_ms(fn, device, spin_ms, flush=None, reps=REPS):
     check(False, "the host never ran ahead of the card")
 
 
-def kernel_times(fn, device, flush=None):
-    """(device ms per call, per-call ms) of `fn`."""
-    per_call = call_ms(fn, device)
-    spin = 2 * REPS * per_call + 1.0
-    return device_ms(fn, device, spin, flush), per_call
+def kernel_times(fn, device, flush=None, reps=REPS):
+    """(device ms per call, per-call ms) of `fn`, over `reps` calls."""
+    per_call = call_ms(fn, device, reps)
+    spin = 2 * reps * per_call + 1.0
+    return device_ms(fn, device, spin, flush, reps), per_call
 
 
 def max_abs_err(wrapper, plain, args) -> int:
@@ -733,37 +753,45 @@ def phase_trace(rows, device):
     """Phase 2, continued: the device MiMC trace (`mimc_trace_kernel`, the
     counterpart of a lax.scan, no Pallas kernel). Over TRACE_CLAIMS claims
     at TRACE_CHECK_STEPS steps it equals its plain version (the kernel's
-    row: device time, plain time and bound on these inputs); then the
-    path `models.mimc.trace_batch_device` of TRACE_CLAIMS claims at
-    BIG_STEPS steps, counted alone, equals the native host trace of each
-    claim, with its device time beside the native trace of the same
-    claims. Adds the row; returns the path's launch counts."""
+    row: device time, plain time and bound on these inputs). At the
+    all-device proof's shape (one claim through BIG_STEPS steps) its
+    first TRACE_CHECK_STEPS rows equal the plain version's and every row
+    the native host trace; with GLOBAL_TRACE_CONSTS constants (more than
+    shared memory holds: the variant that reads them from device memory)
+    its first TRACE_CHECK_STEPS rows equal the plain version's and all
+    GLOBAL_CHECK_STEPS rows the native trace (the plain version takes
+    about 12 ms a step); each is timed in ns per dependent step. Then the path
+    `models.mimc.trace_batch_device` of TRACE_CLAIMS claims at BIG_STEPS
+    steps, counted alone, equals the native host trace of each claim,
+    with its device time beside the native trace of the same claims.
+    Adds the row; returns the path's launch counts."""
     import numpy as np
     import torch
     from starks_tpu_torch.models import mimc
     from starks_tpu_torch.ops import plimbs
-    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    from starks_tpu_torch.utils.conversions import (ints_to_tensor,
+                                                    tensor_to_ints)
     inps = list(range(TRACE_CLAIMS))
     x0, k = ints_to_tensor(inps, device), ints_to_tensor(CONSTS, device)
 
-    def trace_bytes(steps):      # inputs and constants in, the trace out
-        return ELEM * (TRACE_CLAIMS * (steps + 1) + len(CONSTS))
+    def trace_bytes(claims, steps, n_k):  # inputs, constants, the trace
+        return ELEM * (claims * (steps + 1) + n_k)
 
-    def trace_ops(steps):        # a cube (modmul + square) and an add a step
-        return TRACE_CLAIMS * (steps - 1) * (OPS_MUL + OPS_SQR + OPS_ADD)
+    def trace_ops(claims, steps):   # a cube (modmul + square) and an add
+        return claims * (steps - 1) * (OPS_MUL + OPS_SQR + OPS_ADD)
 
     sms, mhz = card_clocks(device)
     ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
 
-    def bound(steps):
-        b_ms = trace_bytes(steps) / HBM_BYTES_PER_S * 1e3
-        o_ms = trace_ops(steps) / ops_per_s * 1e3
+    def bound(claims, steps, n_k=len(CONSTS)):
+        b_ms = trace_bytes(claims, steps, n_k) / HBM_BYTES_PER_S * 1e3
+        o_ms = trace_ops(claims, steps) / ops_per_s * 1e3
         return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
     args = (x0, k, TRACE_CHECK_STEPS)
     err = max_abs_err(plimbs.mimc_trace, plimbs.mimc_trace_plain, args)
     dev, per_call = kernel_times(lambda: plimbs.mimc_trace(*args), device)
-    bound_ms, bound_by = bound(TRACE_CHECK_STEPS)
+    bound_ms, bound_by = bound(TRACE_CLAIMS, TRACE_CHECK_STEPS)
     row = {"name": "mimc_trace", "route": "cuda", "source": SRC,
            "replaces": REPLACES["mimc_trace"], "launches": 0,
            "max_abs_err": err, "ms": dev, "call_ms": per_call,
@@ -778,6 +806,67 @@ def phase_trace(rows, device):
           f"per-call {per_call:.6f} ms, plain {row['plain_ms']:.3f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
 
+    # The all-device proof's shape. The plain version takes a Python
+    # step per row, so it checks the first rows; the native trace all.
+    one = ints_to_tensor([INP], device)
+    got = plimbs.mimc_trace(one, k, BIG_STEPS)
+    check(torch.equal(got[:, :TRACE_CHECK_STEPS], plimbs.mimc_trace_plain(
+        one, k, TRACE_CHECK_STEPS)) and np.array_equal(
+        got[0].cpu().numpy(), mimc.trace_limbs(INP, BIG_STEPS, CONSTS)),
+        f"the one-claim {BIG_STEPS}-step device trace differs from the "
+        f"plain version or the native trace")
+    t0 = time.perf_counter()
+    mimc.trace_limbs(INP, BIG_STEPS, CONSTS)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    dev, per_call = kernel_times(lambda: plimbs.mimc_trace(one, k,
+                                                           BIG_STEPS),
+                                 device, reps=TRACE_REPS)
+    bound_ms, bound_by = bound(1, BIG_STEPS)
+    row["main_path"] = {
+        "shape": f"1 claim x {BIG_STEPS} steps", "ms": dev,
+        "call_ms": per_call, "ns_per_step": dev * 1e6 / (BIG_STEPS - 1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "native_ms": native_ms}
+    print(f"  mimc_trace 1 claim x {BIG_STEPS} steps (the all-device "
+          f"proof's shape): first {TRACE_CHECK_STEPS} rows equal to plain, "
+          f"every row to the native trace; device {dev:.3f} ms "
+          f"({row['main_path']['ns_per_step']:.1f} ns per dependent step), "
+          f"per-call {per_call:.3f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}), native host trace {native_ms:.3f} ms", flush=True)
+
+    # More constants than shared memory holds.
+    gen = torch.Generator().manual_seed(SEED + 7)
+    kg = with_edges(rand_elems(GLOBAL_TRACE_CONSTS, gen, device),
+                    edge_elems(device))
+    check(kg.shape[0] > plimbs.SHARED_TRACE_CONSTS,
+          "the device-memory variant's check stages its constants")
+    xg = with_edges(rand_elems(CHECK_CLAIMS, gen, device), edge_elems(device))
+    got = plimbs.mimc_trace(xg, kg, GLOBAL_CHECK_STEPS)
+    err_g = max_abs_err(plimbs.mimc_trace, plimbs.mimc_trace_plain,
+                        (xg, kg, TRACE_CHECK_STEPS))
+    kg_ints = tensor_to_ints(kg)
+    check(all(np.array_equal(got[c].cpu().numpy(), mimc.trace_limbs(
+        x, GLOBAL_CHECK_STEPS, kg_ints)) for c, x in enumerate(
+        tensor_to_ints(xg))), f"the trace with {GLOBAL_TRACE_CONSTS} "
+        f"constants differs from the native trace")
+    row["max_abs_err"] = max(err, err_g)
+    dev, per_call = kernel_times(lambda: plimbs.mimc_trace(one, kg,
+                                                           BIG_STEPS),
+                                 device, reps=TRACE_REPS)
+    bound_ms, bound_by = bound(1, BIG_STEPS, GLOBAL_TRACE_CONSTS)
+    row["device_memory_consts"] = {
+        "shape": f"1 claim x {BIG_STEPS} steps, {GLOBAL_TRACE_CONSTS} "
+                 f"constants", "ms": dev, "call_ms": per_call,
+        "ns_per_step": dev * 1e6 / (BIG_STEPS - 1), "bound_ms": bound_ms,
+        "bound_by": bound_by, "max_abs_err": err_g}
+    print(f"  mimc_trace with {GLOBAL_TRACE_CONSTS} constants (read from "
+          f"device memory): {CHECK_CLAIMS} claims, the first "
+          f"{TRACE_CHECK_STEPS} steps equal to plain (max_abs_err {err_g}), "
+          f"all {GLOBAL_CHECK_STEPS} to the native trace; 1 claim x "
+          f"{BIG_STEPS} steps: device {dev:.3f} ms "
+          f"({row['device_memory_consts']['ns_per_step']:.1f} ns per "
+          f"dependent step), bound {bound_ms:.6f} ms ({bound_by})",
+          flush=True)
+
     got, launches = counted(lambda: mimc.trace_batch_device(
         inps, BIG_STEPS, CONSTS, device))
     torch.cuda.synchronize(device)
@@ -788,8 +877,8 @@ def phase_trace(rows, device):
           f"the device trace of {TRACE_CLAIMS} claims differs from the "
           f"native host trace")
     dev, _ = kernel_times(lambda: plimbs.mimc_trace(x0, k, BIG_STEPS),
-                          device)
-    bound_ms, bound_by = bound(BIG_STEPS)
+                          device, reps=TRACE_REPS)
+    bound_ms, bound_by = bound(TRACE_CLAIMS, BIG_STEPS)
     row["full"] = {"shape": f"{TRACE_CLAIMS} claims x {BIG_STEPS} steps",
                    "ms": dev, "bound_ms": bound_ms, "bound_by": bound_by,
                    "native_ms": native_ms}
@@ -1629,7 +1718,8 @@ def phase_config4(rows, device, proof16, launches):
     and a steady one, verified, with a flipped byte rejected, its peak
     memory and size; then sharded over SHARDS ranks at 2^16 steps
     (equal to phase 4's proof) and at 2^20 (equal to the one-card
-    proof). Returns the one-card steady proof's wall time."""
+    proof). Returns the one-card steady proof's wall time and the
+    proof."""
     import torch
     import starks_tpu_torch as stt
     from starks_tpu_torch import prover
@@ -1664,7 +1754,46 @@ def phase_config4(rows, device, proof16, launches):
     phase_sharded(BIG_STEPS, proof16, launches)
     print(f"  sharded, {CONFIG4_STEPS} steps:", flush=True)
     phase_sharded(CONFIG4_STEPS, proof, launches)
-    return steady["total"]
+    return steady["total"], proof
+
+
+def phase_device_trace(device, host_proofs, launches):
+    """Phase 11: the all-device MiMC proof
+    (`prover.mk_mimc_proof_fused(device_trace=True)`: the trace built on
+    the card by one launch of the trace kernel, none of it on the host)
+    at BIG_STEPS and CONFIG4_STEPS steps, run after phase 9 (whose
+    set-up it shares) and before the profiler. Each proof, counted
+    alone, equals the host-trace proof of phases 4 and 9
+    (`host_proofs`) byte for byte and verifies; it launches exactly one
+    trace kernel and every other kernel as often as that proof. Prints
+    the stage times (the device trace a stage of its own) and the calls
+    that wait for the card."""
+    import starks_tpu_torch as stt
+    from starks_tpu_torch import prover
+    for steps, path, host_path in ((BIG_STEPS, MIMC_DEV, MIMC),
+                                   (CONFIG4_STEPS, MIMC4_DEV, MIMC4)):
+        def run(timings=None):
+            return prover.mk_mimc_proof_fused(
+                INP, steps, CONSTS, device_trace=True, device=device,
+                timings=timings)
+        steady = {}
+        proof, launches[path] = counted(lambda: run(steady))
+        check(proof == host_proofs[steps],
+              f"the all-device {steps}-step proof differs from the "
+              f"host-trace proof")
+        out = stt.mimc_forward(INP, steps, CONSTS)
+        check(stt.verify_mimc_proof(INP, steps, CONSTS, out, proof),
+              f"verifier rejected the all-device {steps}-step proof")
+        want = dict(launches[host_path], mimc_trace=1)
+        check(launches[path] == want,
+              f"{path} launches {launches[path]}, expected {want}")
+        waits = count_syncs(run, device)
+        print(f"  {path}: equals the host-trace proof byte for byte; "
+              f"verified; {waits} calls that wait for the card (torch.cuda "
+              f"sync debug mode)", flush=True)
+        print_launches(launches[path])
+        for stage, sec in steady.items():
+            print(f"    {stage:<32s} {sec * 1e3:10.3f} ms", flush=True)
 
 
 def phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,
@@ -1790,21 +1919,25 @@ def profile_proof(run, device, steady_s):
         run()
         torch.cuda.synchronize(device)
         counts = dict(plimbs.LAUNCHES)
-    events = sorted((evt for evt in prof.events()
-                     if evt.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda evt: evt.time_range.start)
-    spins = [i for i, evt in enumerate(events) if "spin_kernel" in evt.name]
+    # The profiler's raw (kineto) events: the same device events as
+    # prof.events(), which first builds a tree of every CPU and CUDA
+    # event (~540k for a 2^16-step proof: 46 s of host time a profile
+    # on the H100's host, against 3 s for these).
+    events = sorted(((evt.start_ns(), evt.duration_ns() / 1e3, evt.name())
+                     for evt in prof.profiler.kineto_results.events()
+                     if evt.device_type() == torch.autograd.DeviceType.CUDA))
+    spins = [i for i, (_, _, name) in enumerate(events)
+             if "spin_kernel" in name]
     check(spins, "the profiler lists no spin after the primer")
-    primer = sum(bool(FIELD_KERNEL.match(evt.name))
-                 for evt in events[:spins[0]])
+    primer = sum(bool(FIELD_KERNEL.match(name))
+                 for _, _, name in events[:spins[0]])
     launches, device_us, field_us, seen = 0, 0.0, {}, {}
-    for evt in events[spins[0] + 1:]:
-        if "memcpy" in evt.name.lower() or "memset" in evt.name.lower():
+    for _, us, name in events[spins[0] + 1:]:
+        if "memcpy" in name.lower() or "memset" in name.lower():
             continue
-        us = evt.time_range.elapsed_us()
         launches += 1
         device_us += us
-        m = FIELD_KERNEL.match(evt.name)
+        m = FIELD_KERNEL.match(name)
         if m:
             key = kernel_key(m)
             field_us[key] = field_us.get(key, 0.0) + us
@@ -1851,7 +1984,8 @@ def phase_launches(rows, launches):
                   f"{count} per {one} proof")
         print(f"  {chunk}: every kernel's launches equal one {one} "
               f"proof's", flush=True)
-    for path in (MIMC4, SHARDED.format(BIG_STEPS), MIMC4_SHARDED, TRACE):
+    for path in (MIMC4, SHARDED.format(BIG_STEPS), MIMC4_SHARDED, MIMC_DEV,
+                 MIMC4_DEV, TRACE):
         extra = [k for k, v in launches[path].items()
                  if v and k not in PATH_KERNELS[path]]
         check(not extra, f"the {path} path launched {extra}")
@@ -1931,7 +2065,12 @@ def main() -> int:
     announce(f"phase 9: benchmark config 4 ({CONFIG4_STEPS} steps, "
              f"{CONFIG4_STEPS * EXT}-point domain), one card and {SHARDS} "
              f"shards")
-    mimc4_steady_s = phase_config4(rows, device, proof16, launches)
+    mimc4_steady_s, proof4 = phase_config4(rows, device, proof16, launches)
+
+    announce(f"phase 11: the all-device MiMC proof (device trace; "
+             f"{BIG_STEPS} and {CONFIG4_STEPS} steps)")
+    phase_device_trace(device, {BIG_STEPS: proof16, CONFIG4_STEPS: proof4},
+                       launches)
 
     announce("phase 7: profiled proofs")
     phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,

@@ -7,19 +7,25 @@ proofs: `mk_mimc_proof`, `mk_mimc_proof_batch_fused` and
 `prove_air` run the hand-written CUDA kernels of csrc/ on the card (or
 their plain PyTorch versions with `device="cpu"`) and produce proofs
 byte-identical to the reference;
-`verify_mimc_proof` and `verify_air` check them on the host. With a
+`verify_mimc_proof` and `verify_air` check them on the host.
+`prover.mk_mimc_proof_fused(..., device_trace=True)` is the all-device
+MiMC proof: its trace is built on the card by one kernel launch, none
+of it on the host. With a
 `mesh` (`parallel.mesh.make_mesh` over a `torch.distributed` group),
 `mk_mimc_proof`, `mk_mimc_proof_with_trace`, `prove_batch` and
 `prove_low_degree` (FRI alone, checked by `verify_low_degree_proof`)
 shard the evaluation domain over the mesh's ranks, with the four-step
-NTT (parallel/ntt4step.py) and sharded trees and FRI rounds.
+NTT (parallel/ntt4step.py) and sharded trees and FRI rounds; `python -m
+starks_tpu_torch.parallel.launch prove STEPS RANKS` proves one claim so
+on new ranks, one per card, against the one-card proof.
 `prove_batch` adds resume from a proof store (utils/artifacts.py),
 self-verification and retries through `mk_mimc_proof_with_trace`;
 `serialize_proof` and `deserialize_proof` are the wire format. The
-Fibonacci-square AIR is in `starks_tpu_torch.models.fib_square`, the
-MiMC traces of a claim batch on the card in
-`models.mimc.trace_batch_device`, and the algebra class stack
-(`IntegersModP`, `FiniteField`, `polynomials_over`,
+Fibonacci-square AIR is in `starks_tpu_torch.models.fib_square`; the
+MiMC permutation's backward direction (`models.mimc.mimc_backward`)
+and the traces of a claim batch on the card
+(`models.mimc.trace_batch_device`) in `models.mimc`; and the algebra
+class stack (`IntegersModP`, `FiniteField`, `polynomials_over`,
 `multivariates_over`) in `starks_tpu_torch.algebra`.
 """
 

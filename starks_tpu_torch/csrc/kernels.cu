@@ -589,32 +589,69 @@ KERNEL binary_kernel(const Fe* __restrict__ a, uint32_t a_len,
 // trace_batch_device, starks_tpu/models/mimc.py; no Pallas kernel):
 // trace[c][0] = x0[c], trace[c][i + 1] = trace[c][i]^3 + k[i % n_k].
 // The recurrence is sequential, so each thread runs one claim through
-// every step; the round constants sit in shared memory. Blocks of one
-// warp spread the claims over the SMs: a step is a chain of dependent
-// modmuls, bound by their latency, not by any shared resource.
+// every step; blocks of one warp spread the claims over the SMs. A step
+// is a chain of dependent modmuls, bound by their latency, not by any
+// shared resource. The next step's constant is loaded while the cube
+// runs. Up to kMaxTraceConsts constants are staged in shared memory
+// (SharedConsts); more are read from device memory through the
+// read-only cache (GlobalConsts), which the one-step-ahead load hides.
+struct SharedConsts {
+  static constexpr bool kStaged = true;
+  OP_FN Fe load(const Fe* k, uint32_t j) { return k[j]; }
+};
+
+struct GlobalConsts {
+  static constexpr bool kStaged = false;
+  OP_FN Fe load(const Fe* k, uint32_t j) {
+#ifdef __CUDA_ARCH__
+    const uint4* p = reinterpret_cast<const uint4*>(k + j);
+    const uint4 a = __ldg(p), b = __ldg(p + 1);
+    return Fe{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+#else
+    return k[j];
+#endif
+  }
+};
+
+template <class Consts>
 FIELD_FN void mimc_trace_claim(Fe x, const Fe* consts, uint32_t n_k, Fe* out,
                                uint32_t steps) {
   out[0] = x;
+  Fe k = Consts::load(consts, 0);
   for (uint32_t i = 0, j = 0; i + 1 < steps; ++i) {
-    x = field::add(field::cube(x), consts[j]);
-    out[i + 1] = x;
     j = j + 1 == n_k ? 0 : j + 1;
+    const Fe next = Consts::load(consts, j);
+    x = field::add(field::cube(x), k);
+    out[i + 1] = x;
+    k = next;
   }
 }
+
+// Constants the trace stages in shared memory: they fill the 48 KB a
+// launch gets without opting in.
+constexpr uint32_t kMaxTraceConsts = (48u << 10) / sizeof(Fe);
 
 #ifdef __CUDACC__
 constexpr uint32_t kTraceThreads = 32;
 
+template <class Consts>
 __global__ void mimc_trace_kernel(const Fe* __restrict__ x0,
                                   const Fe* __restrict__ consts,
                                   uint32_t n_k, Fe* __restrict__ out,
                                   uint32_t steps, uint32_t batch) {
   extern __shared__ Fe k_sh[];
-  for (uint32_t j = threadIdx.x; j < n_k; j += blockDim.x) k_sh[j] = consts[j];
-  __syncthreads();
   const uint32_t c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c < batch) mimc_trace_claim(x0[c], k_sh, n_k, out + (size_t)c * steps,
-                                  steps);
+  if constexpr (Consts::kStaged) {
+    for (uint32_t j = threadIdx.x; j < n_k; j += blockDim.x)
+      k_sh[j] = consts[j];
+    __syncthreads();
+    if (c < batch)
+      mimc_trace_claim<Consts>(x0[c], k_sh, n_k, out + (size_t)c * steps,
+                               steps);
+  } else if (c < batch) {
+    mimc_trace_claim<Consts>(x0[c], consts, n_k, out + (size_t)c * steps,
+                             steps);
+  }
 }
 #endif
 
@@ -792,26 +829,31 @@ int starks_cube(const void* a, void* out, uint32_t n, uint32_t batch,
 }
 
 // `batch` MiMC traces of `steps` rows from the inputs x0 [batch] and the
-// n_k round constants (at most kMaxTraceConsts: they fill the 48 KB of
-// shared memory a launch gets without opting in).
-constexpr uint32_t kMaxTraceConsts = (48u << 10) / sizeof(Fe);
-
+// n_k >= 1 round constants.
 int starks_mimc_trace(const void* x0, const void* consts, uint32_t n_k,
                       void* out, uint32_t steps, uint32_t batch,
                       void* stream) {
-  if (n_k == 0 || n_k > kMaxTraceConsts) return -1;
+  if (n_k == 0) return -1;
 #ifdef __CUDACC__
-  if (steps && batch)
-    mimc_trace_kernel<<<(batch + kTraceThreads - 1) / kTraceThreads,
-                        kTraceThreads, n_k * sizeof(Fe),
-                        (cudaStream_t)stream>>>(F(x0), F(consts), n_k, W(out),
-                                                steps, batch);
+  const uint32_t blocks = (batch + kTraceThreads - 1) / kTraceThreads;
+  if (steps && batch && n_k <= kMaxTraceConsts)
+    mimc_trace_kernel<SharedConsts>
+        <<<blocks, kTraceThreads, n_k * sizeof(Fe), (cudaStream_t)stream>>>(
+            F(x0), F(consts), n_k, W(out), steps, batch);
+  else if (steps && batch)
+    mimc_trace_kernel<GlobalConsts>
+        <<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
+            F(x0), F(consts), n_k, W(out), steps, batch);
   return (int)cudaGetLastError();
 #else
   (void)stream;
-  for (uint32_t c = 0; c < batch; ++c)
-    mimc_trace_claim(F(x0)[c], F(consts), n_k, W(out) + (size_t)c * steps,
-                     steps);
+  for (uint32_t c = 0; c < batch; ++c) {
+    Fe* oc = W(out) + (size_t)c * steps;
+    if (n_k <= kMaxTraceConsts)
+      mimc_trace_claim<SharedConsts>(F(x0)[c], F(consts), n_k, oc, steps);
+    else
+      mimc_trace_claim<GlobalConsts>(F(x0)[c], F(consts), n_k, oc, steps);
+  }
   return 0;
 #endif
 }

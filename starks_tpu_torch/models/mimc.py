@@ -1,11 +1,15 @@
-"""MiMC permutation: forward function and host trace.
+"""MiMC permutation: forward and backward functions, host and device
+traces.
 
 The canonical single-register AIR instance (SURVEY §3.1 `starks/mimc.py`):
-steps-1 rounds of x <- x^3 + c[i mod len(c)] (mod p). The trace is
-sequential per proof, so it runs on the host, in the native runtime
-(`trace_limbs`; `trace_host` is its plain bigint version), and is
-uploaded whole (2 MB at 2^16 steps). `trace_batch_device` runs the
-traces of a claim batch on the card instead, one thread per claim.
+steps-1 rounds of x <- x^3 + c[i mod len(c)] (mod p); `mimc_backward`
+runs them in reverse (the slow direction of the VDF). The trace is
+sequential per proof, so the provers build it on the host, in the
+native runtime (`trace_limbs`; `trace_host` is its plain bigint
+version), and upload it whole (2 MB at 2^16 steps). `trace_batch_device`
+runs the traces of a claim batch on the card instead, one thread per
+claim; the all-device proof (`prover.mk_mimc_proof_fused(device_trace=
+True)`) takes its trace from it.
 """
 
 from ..ops import plimbs
@@ -14,11 +18,26 @@ from ..utils.conversions import ints_to_tensor
 
 MODULUS = 2**256 - 351 * 2**32 + 1
 
+# Cube-root exponent: gcd(3, p-1) = 1 for this field, so x -> x^3 is a
+# permutation and its inverse is x -> x^D with D = 3^(-1) mod (p-1).
+_CUBE_ROOT_EXP = pow(3, -1, MODULUS - 1)
+
 
 def mimc_forward(inp: int, steps: int, round_constants) -> int:
     for i in range(steps - 1):
         inp = (inp ** 3 + round_constants[i % len(round_constants)]) % MODULUS
     return inp
+
+
+def mimc_backward(out: int, steps: int, round_constants) -> int:
+    """Inverse MiMC permutation (the slow VDF direction, one 256-bit
+    exponentiation a round): x_i = (x_{i+1} - c[i mod n_c])^(3^-1 mod
+    p-1), run backwards. Satisfies mimc_forward(mimc_backward(y)) == y."""
+    x = out % MODULUS
+    for i in range(steps - 2, -1, -1):
+        c = round_constants[i % len(round_constants)]
+        x = pow((x - c) % MODULUS, _CUBE_ROOT_EXP, MODULUS)
+    return x
 
 
 def trace_host(inp: int, steps: int, round_constants) -> list:
@@ -42,10 +61,11 @@ def trace_batch_device(inps, steps: int, round_constants, device=None):
     rounds from inps[c]. The counterpart of the JAX package's
     `trace_batch_device` (starks_tpu/models/mimc.py:73, a `lax.scan`
     over [steps, B, 16] limbs), run by `plimbs.mimc_trace`: one kernel
-    launch, a thread per claim. No prover calls it, as in the JAX
-    package (the provers take their traces from `trace_limbs`).
-    `device` None means "cuda"; `device="cpu"` runs the plain
-    version."""
+    launch, a thread per claim. The all-device proof
+    (`prover.mk_mimc_proof_fused(device_trace=True)`) takes its trace
+    from here, as the JAX package's device-trace core takes it from its
+    scan; the other provers take theirs from `trace_limbs`. `device`
+    None means "cuda"; `device="cpu"` runs the plain version."""
     from ..prover import _resolve_device
     device = _resolve_device(device)
     x0 = ints_to_tensor([x % MODULUS for x in inps], device)

@@ -603,8 +603,9 @@ def mimc_trace_plain(x0, consts, steps: int):
     return torch.stack(rows, dim=1)
 
 
-# Round constants the trace kernel holds in shared memory (48 KB).
-MAX_TRACE_CONSTS = 1536
+# Round constants the trace kernel stages in shared memory (48 KB); it
+# reads more from device memory.
+SHARED_TRACE_CONSTS = 1536
 
 
 def mimc_trace(x0, consts, steps: int):
@@ -613,17 +614,19 @@ def mimc_trace(x0, consts, steps: int):
     trace[c][i + 1] = trace[c][i]^3 + consts[i % n_k].
 
     The counterpart of the `lax.scan` in `trace_batch_device`
-    (starks_tpu/models/mimc.py:65-80), which is no Pallas kernel. Runs
-    `mimc_trace_kernel` (csrc/kernels.cu): one thread per claim through
-    every step, the constants in shared memory. Bound: the larger of
-    its bytes (32 * B * steps written) and its operations (a cube and an
-    add per claim and step); each claim's steps are a chain of dependent
-    modmuls, so with few claims their latency holds it far above both."""
+    (starks_tpu/models/mimc.py:65-80), which is no Pallas kernel; the
+    all-device proof (`prover.mk_mimc_proof_fused(device_trace=True)`)
+    runs it. Runs `mimc_trace_kernel` (csrc/kernels.cu): one thread per
+    claim through every step, the constants in shared memory (up to
+    SHARED_TRACE_CONSTS) or read from device memory a step ahead. Bound:
+    the larger of its bytes (32 * B * steps written) and its operations
+    (a cube and an add per claim and step); each claim's steps are a
+    chain of dependent modmuls, so with few claims their latency holds
+    it far above both."""
     if x0.dim() != 2 or x0.shape[0] == 0:
         raise ValueError("x0 must be [B, 8]")
-    if consts.dim() != 2 or not 1 <= consts.shape[0] <= MAX_TRACE_CONSTS:
-        raise ValueError(f"consts must be [n_k, 8], 1 <= n_k <= "
-                         f"{MAX_TRACE_CONSTS}")
+    if consts.dim() != 2 or consts.shape[0] == 0:
+        raise ValueError("consts must be [n_k, 8] with n_k >= 1")
     if steps < 1:
         raise ValueError("steps must be positive")
     if not _on_card(x0, consts):

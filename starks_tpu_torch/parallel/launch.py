@@ -1,6 +1,7 @@
 """Run a function on n new ranks of one `torch.distributed` group.
 
     python -m starks_tpu_torch.parallel.launch dryrun [RANKS] [cuda|cpu]
+    python -m starks_tpu_torch.parallel.launch prove STEPS RANKS [cuda|cpu]
 
 `run(fn, n_ranks, *args, device=...)` starts n processes
 (`torch.multiprocessing`, spawned), joins them into one process group
@@ -20,6 +21,16 @@ device_count)`, or on the CPU when asked.
 [1, n] mesh it runs the four-step NTT forward and back against the
 single-device DIF transform, then a 128-step sharded MiMC proof
 against the single-device proof, and prints what it checked.
+
+`prove` proves one MiMC claim of STEPS steps (input 3, the 64 round
+constants (i^7) xor 42 of chip_smoke.py and benchmark config 4) on a
+[1, RANKS] mesh: first on one device in this process (cuda:0), then
+on RANKS new ranks, one per card where there are enough (NCCL). Every
+rank's proof must equal the one-device proof byte for byte. It prints,
+per rank, the steady proof's stage times, each collective's count,
+bytes sent to other ranks and seconds, and the four-step NTT over the
+evaluation domain (STEPS * 8 points) beside the one-device DIF
+transform of the same size.
 """
 
 import os
@@ -150,9 +161,126 @@ def dryrun(n_ranks: int = 4, device: str = "cuda") -> list:
     return results
 
 
+# -- prove ------------------------------------------------------------
+
+PROVE_INP = 3
+PROVE_CONSTS = [(i ** 7) ^ 42 for i in range(64)]
+NTT_REPS = 5
+PROVE_TIMEOUT_S = 1200.0
+
+
+def _random_field(rows: int, device, seed: int) -> torch.Tensor:
+    """[rows, 8] field elements below 2^255 (so below p) from `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 2 ** 31, (rows, 8), generator=gen,
+                         dtype=torch.int32).to(device)
+
+
+def _seconds(fn, device, reps: int = NTT_REPS, barrier: bool = False):
+    """Mean seconds of `fn()` over `reps` runs after one warm-up, each
+    run between two waits for the device (and, with `barrier`, after
+    every rank of the group has arrived)."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        if barrier:
+            dist.barrier()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        total += time.perf_counter() - t0
+    return total / reps
+
+
+def _prove_rank(rank, steps, device):
+    from .. import prover
+    from ..config import REFERENCE
+    from ..ops import plimbs
+    from . import mesh as pmesh
+    from . import ntt4step
+    mesh = pmesh.make_mesh(device=device)
+    t0 = time.perf_counter()
+    prover.mk_mimc_proof(PROVE_INP, steps, PROVE_CONSTS, mesh=mesh)
+    first_s = time.perf_counter() - t0
+    mesh.reset_counts()
+    mesh.timed = True
+    plimbs.reset_launches()
+    steady = {}
+    proof = prover.mk_mimc_proof(PROVE_INP, steps, PROVE_CONSTS, mesh=mesh,
+                                 timings=steady)
+    launches = dict(plimbs.LAUNCHES)
+    collectives = {k: (mesh.counts[k], mesh.bytes[k], mesh.seconds[k])
+                   for k in mesh.counts}
+    mesh.timed = False
+    plan = prover._ShardedSetup.get(steps, REFERENCE, mesh).plan_lde
+    rows = plan.n // mesh.n_shard
+    x = _random_field(plan.n, "cpu", 1)[rank * rows:(rank + 1) * rows]
+    x = x.to(mesh.device)
+    ntt_s = _seconds(lambda: ntt4step.fourstep_ntt(x, plan), mesh.device,
+                     barrier=True)
+    return {"proof": proof, "first_s": first_s, "steady": steady,
+            "launches": launches, "collectives": collectives,
+            "fourstep_s": ntt_s, "points": plan.n,
+            "device": str(mesh.device), "transport": mesh.transport}
+
+
+def prove(steps: int, n_ranks: int, device: str = "cuda") -> list:
+    """The `prove` subcommand: one claim on one device, then sharded on
+    `n_ranks` new ranks; returns every rank's findings and raises if a
+    rank's proof differs from the one-device proof."""
+    from .. import prover
+    from ..config import REFERENCE
+    from ..ops import fused, plimbs
+    one = torch.device("cuda", 0) if device == "cuda" else torch.device(
+        "cpu")
+    t0 = time.perf_counter()
+    want = prover.mk_mimc_proof(PROVE_INP, steps, PROVE_CONSTS, device=one)
+    single_s = time.perf_counter() - t0
+    n = steps * REFERENCE.extension_factor
+    m = prover.MODULUS
+    table = fused.power_table(pow(REFERENCE.generator, (m - 1) // n, m), n,
+                              one)
+    x = _random_field(n, one, 1)
+    dif_s = _seconds(lambda: plimbs.dif_transform(x, table), one)
+    del x, table
+    results = run(_prove_rank, n_ranks, steps, device, device=device,
+                  timeout=PROVE_TIMEOUT_S)
+    for rank, res in enumerate(results):
+        if res["proof"] != want:
+            raise AssertionError(f"rank {rank}: the {steps}-step sharded "
+                                 f"proof differs from the one-device proof")
+    print(f"[prove] {steps} steps on {n_ranks} ranks ({device}, "
+          f"{results[0]['transport']}): every rank's proof equals the "
+          f"one-device proof byte for byte (one device, first call with "
+          f"set-up: {single_s:.3f} s)", flush=True)
+    for rank, res in enumerate(results):
+        print(f"  rank {rank} on {res['device']}: first call (with set-up) "
+              f"{res['first_s']:.3f} s; steady stages (ms): " + ", ".join(
+                  f"{k} {v * 1e3:.3f}" for k, v in res["steady"].items()),
+              flush=True)
+        print("    collectives (count, MB to other ranks, s): " + ", ".join(
+            f"{k} {c} / {b / 1e6:.3f} / {sec:.4f}"
+            for k, (c, b, sec) in res["collectives"].items()), flush=True)
+        print("    launches: " + (", ".join(
+            f"{k} {v}" for k, v in res["launches"].items() if v)
+            or "none (the plain versions ran)"), flush=True)
+        print(f"    four-step NTT over {res['points']} points: "
+              f"{res['fourstep_s'] * 1e3:.3f} ms (mean of {NTT_REPS}); the "
+              f"one-device DIF transform of {n} points on {one}: "
+              f"{dif_s * 1e3:.3f} ms", flush=True)
+    return results
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dryrun"]:
         dryrun(int(sys.argv[2]) if len(sys.argv) > 2 else 4,
                sys.argv[3] if len(sys.argv) > 3 else "cuda")
+        sys.exit(0)
+    if sys.argv[1:2] == ["prove"] and len(sys.argv) in (4, 5):
+        prove(int(sys.argv[2]), int(sys.argv[3]),
+              sys.argv[4] if len(sys.argv) > 4 else "cuda")
         sys.exit(0)
     sys.exit(__doc__)

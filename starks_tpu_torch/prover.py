@@ -1,17 +1,18 @@
 """MiMC STARK prover on PyTorch and CUDA.
 
 Port of `starks_tpu/prover.py`: the single-device paths (`mk_mimc_proof`
--> `_prove_from_trace_fused` -> `post_trace_pl`, and the batch prover
-`mk_mimc_proof_batch_fused`, which vmaps that core over a claim axis),
-the mesh path (`mk_mimc_proof_with_trace(mesh=...)`) and
+-> `_prove_from_trace_fused` -> `post_trace_pl`; `mk_mimc_proof_fused`,
+whose `device_trace=True` builds the trace on the card; and the batch
+prover `mk_mimc_proof_batch_fused`, which vmaps that core over a claim
+axis), the mesh path (`mk_mimc_proof_with_trace(mesh=...)`) and
 `prove_low_degree`. The pipeline is identical in math and transcript
 bytes (SURVEY.md §4.1):
 
-  host trace (native runtime) -> LDE (DIF kernel, 1/n in its last
-  stage; DIT kernel) -> D/B map kernel -> commit P||D||B -> Fiat-Shamir
-  weights -> L map kernel -> commit L -> spot-check bundles -> FRI
-  (fold4 kernel per round) -> one device-to-host copy -> host byte
-  assembly.
+  host trace (native runtime; or the device trace kernel) -> LDE (DIF
+  kernel, 1/n in its last stage; DIT kernel) -> D/B map kernel ->
+  commit P||D||B -> Fiat-Shamir weights -> L map kernel -> commit L ->
+  spot-check bundles -> FRI (fold4 kernel per round) -> one
+  device-to-host copy -> host byte assembly.
 
 Every device step runs over a claim axis: B proofs take one launch of
 each kernel and each blake2s tensor op, and a single proof is the
@@ -507,6 +508,47 @@ def mk_mimc_proof_with_trace(inp: int, steps: int, round_constants, trace,
     return _prove_one(inp, steps, round_constants,
                       lambda: _trace_array(trace, steps), mesh, config,
                       device, timings)
+
+
+def mk_mimc_proof_fused(inp: int, steps: int, round_constants,
+                        config: StarkConfig = REFERENCE,
+                        device_trace: bool = False, device=None,
+                        timings: dict = None):
+    """The counterpart of JAX `mk_mimc_proof_fused`
+    (starks_tpu/prover.py:902): the proof of `mk_mimc_proof`, byte for
+    byte. With `device_trace=False` it is `mk_mimc_proof` (the native
+    host trace, uploaded).
+
+    With `device_trace=True` nothing of the trace is computed on the
+    host or uploaded (the JAX package's "no-host fallback"): one launch
+    of `mimc_trace_kernel` (`models.mimc.trace_batch_device`) writes the
+    [1, steps, 8] trace on the device, and the proof runs from it. The
+    host reads back only the output, the trace's last row (32 bytes,
+    one wait for the card), to build the boundary interpolant as the
+    host path does. The trace is a chain of dependent steps on one
+    thread, so this is slower than the host trace (PERF.md §5).
+    `device` and `timings` as in `mk_mimc_proof`; the stages "setup"
+    and "device trace" stand where the host path has "host trace" and
+    "setup + trace upload"."""
+    if not device_trace:
+        return mk_mimc_proof(inp, steps, round_constants, config=config,
+                             device=device, timings=timings)
+    device = _resolve_device(device)
+    _check_claim(steps, round_constants, config)
+    timer = _StageTimer(timings, device)
+    su = _FusedSetup.get(steps, config, device)
+    k_ext = su.k_ext(round_constants)
+    timer.mark("setup")
+    inp = inp % MODULUS
+    trace = mimc_model.trace_batch_device([inp], steps, round_constants,
+                                          device)
+    # .cpu() waits for the trace kernel on this stream.
+    last = trace[0, -1].cpu().numpy()
+    timer.mark("device trace")
+    fetch = _start_fetch(_prove_sections(
+        su, trace, k_ext, [inp], [int.from_bytes(last.tobytes(), "little")],
+        timer))
+    return _finish_fetch(fetch, 3 * NUM_WORDS, len(su.schedule), timer)[0]
 
 
 def mk_mimc_proof_batch_fused(inps, steps: int, round_constants,

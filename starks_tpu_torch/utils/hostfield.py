@@ -108,6 +108,24 @@ def _mul_linear(poly, c, m):
     return out
 
 
+def interp4(xs, ys, m: int = MODULUS):
+    """Quartic (degree-3) interpolation through 4 points; coefficient list
+    [a0..a3]. `interp4_coset` is its fast form for FRI's coset points."""
+    coeffs = [0, 0, 0, 0]
+    for j in range(4):
+        num = [1]
+        denom = 1
+        for k in range(4):
+            if k == j:
+                continue
+            num = _mul_linear(num, xs[k], m)
+            denom = denom * (xs[j] - xs[k]) % m
+        scale = ys[j] * inv(denom, m) % m
+        for k in range(4):
+            coeffs[k] = (coeffs[k] + num[k] * scale) % m
+    return coeffs
+
+
 _INV4 = None
 
 
@@ -118,7 +136,7 @@ def interp4_coset(x1: int, i4: int, ys, m: int = MODULUS,
     every FRI row (`starks/fri.py` groups rows by stride N/4, SURVEY
     §4.3), so Lagrange interpolation collapses to a 4-point inverse DFT:
     c_k = (1/4) * x1^{-k} * sum_j i^{-jk} ys[j]. ONE extended-Euclid
-    inversion instead of interp4's four; pass `x1_inv` (e.g. from a
+    inversion instead of `interp4`'s four; pass `x1_inv` (e.g. from a
     multi_inv batch over all of a round's queries) for zero."""
     global _INV4
     if _INV4 is None or m != MODULUS:

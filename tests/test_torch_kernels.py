@@ -779,6 +779,25 @@ def test_host_mimc_trace_matches_native(host_kernels):
                                                               consts)))
 
 
+def test_host_mimc_trace_reads_many_constants_from_device_memory(
+        host_kernels):
+    """More constants than the kernel stages in shared memory (2048 over
+    4096 steps, so every constant is read twice): the body of the
+    device-memory variant as g++ builds it equals each claim's native
+    trace."""
+    from starks_tpu_torch.models import mimc
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    consts = [(i ** 7) ^ 42 for i in range(2048)]
+    assert len(consts) > plimbs.SHARED_TRACE_CONSTS
+    inps = [3, M - 1]
+    x0, k = ints_to_tensor(inps), ints_to_tensor(consts)
+    (out,) = _host_call(host_kernels, "starks_mimc_trace", [x0, k, 2048],
+                        [4096, 2], [(2, 4096, 8)])
+    for c, x in enumerate(inps):
+        assert out[c].equal(torch.from_numpy(mimc.trace_limbs(x, 4096,
+                                                              consts)))
+
+
 def test_mimc_trace_rejects_bad_arguments(host_kernels):
     x0, k = _rand(3, 90)[1], _rand(8, 91)[1]
     with pytest.raises(ValueError):
@@ -786,16 +805,11 @@ def test_mimc_trace_rejects_bad_arguments(host_kernels):
     with pytest.raises(ValueError):
         plimbs.mimc_trace(x0, k[:0], 8)                # no constants
     with pytest.raises(ValueError):
-        plimbs.mimc_trace(x0, k[:1].expand(plimbs.MAX_TRACE_CONSTS + 1,
-                                          8), 8)
-    with pytest.raises(ValueError):
         plimbs.mimc_trace(x0, k, 0)
-    # The C entry refuses what the wrapper refuses.
-    big = torch.zeros((plimbs.MAX_TRACE_CONSTS + 1, 8), dtype=torch.int32)
+    # The C entry refuses what the wrapper refuses: no constants.
     out = torch.empty((3, 8, 8), dtype=torch.int32)
     assert host_kernels.starks_mimc_trace(
-        x0.data_ptr(), big.data_ptr(), big.shape[0], out.data_ptr(), 8, 3,
-        None) != 0
+        x0.data_ptr(), k.data_ptr(), 0, out.data_ptr(), 8, 3, None) != 0
 
 
 @pytest.mark.parametrize("shards", [2, 4])

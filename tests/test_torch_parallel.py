@@ -332,6 +332,24 @@ def test_launch_dryrun():
         "proof on every rank" in res.stdout
 
 
+def test_launch_prove(capsys):
+    """The launcher's `prove` (config 4's claim: 64 constants, so 128
+    steps at the least) on two CPU ranks over gloo: every rank's proof
+    equals the oracle's, with one all_to_all_single per FRI round and
+    three per four-step transform plus the padding, and the four-step
+    NTT timed over the 1024-point domain beside the DIF transform."""
+    results = launch.prove(128, 2, "cpu")
+    want = ostark.mk_mimc_proof(launch.PROVE_INP, 128, launch.PROVE_CONSTS)
+    rounds = len(fused.fri_round_schedule(1024, 256, 16))
+    for res in results:
+        assert res["proof"] == want and res["points"] == 1024
+        assert res["collectives"]["all_to_all_single"][0] == 7 + rounds
+        assert res["fourstep_s"] > 0 and res["steady"]["total"] > 0
+    out = capsys.readouterr().out
+    assert "every rank's proof equals the one-device proof" in out
+    assert out.count("four-step NTT over 1024 points") == 2
+
+
 def test_launch_stops_every_rank_when_one_fails():
     """A rank that raises ends the run with its traceback; the rank that
     waits for it in a barrier is stopped, not left hanging."""
