@@ -36,13 +36,16 @@ Phases (any failure exits non-zero and prints no result):
      claim or shared), each equal to its plain version and to 16
      one-claim launches, timed beside those launches and the bound that
      counts a shared operand once; the device MiMC trace
-     (`mimc_trace_kernel`) against its plain version, at the all-device
-     proof's shape (one claim, 2^16 steps; its first rows against the
-     plain version, all against the native trace) in ns per dependent
-     step, with 2048 round constants (more than shared memory holds:
-     read from device memory) against its plain version and timed, and
-     `trace_batch_device` of 64 claims at 2^16 steps against the native
-     host trace of each claim, timed beside it;
+     (`mimc_trace_kernel`) against its plain version (first rows) and
+     the native trace (every row) at 1, 3, 5 and 64 claims with 1,
+     1536, 1537 and 2048 round constants (x0 and a constant p - 1), and
+     at the all-device proof's shape (one claim, 2^16 steps); the design
+     it replaced (every intermediate canonical) timed beside it in turns
+     at one and 64 claims x 2^16 and with 2048 constants, in ns per
+     dependent step, beside its roofline bound and its chain floor (4
+     dependent IMAD.WIDE and 10 dependent IADD3 a step, their latencies
+     timed on one thread); `trace_batch_device` of 64 claims at 2^16
+     steps against the native host trace of each claim;
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
@@ -108,7 +111,7 @@ Phases (any failure exits non-zero and prints no result):
      host-trace proof of phase 4 or 9 and verified, launching one trace
      kernel and every other kernel as often as that proof; stage times
      (the device trace a stage of its own) and the calls that wait for
-     the card.
+     the card: exactly one more than the host-trace proof's.
 Phase 8 also requires the config 4 paths, the all-device proofs and the
 device trace to launch only their kernels.
 
@@ -148,6 +151,12 @@ TRACE_CHECK_STEPS = 2 ** 6    # ... against its plain version
 TRACE_REPS = 5                # launches per timing of a 2^16-step trace
 GLOBAL_TRACE_CONSTS = 2048    # more than shared memory holds ...
 GLOBAL_CHECK_STEPS = 2 ** 12  # ... each read twice (native trace)
+# The trace against its plain version and the native trace: claims, and
+# constant counts (one; shared memory full; one over, and 2048: read
+# from device memory), each with x0 = p - 1 and a constant p - 1 first.
+TRACE_SHAPE_CLAIMS = (1, 3, 5, TRACE_CLAIMS)
+TRACE_SHAPE_CONSTS = (1, 1536, 1537, GLOBAL_TRACE_CONSTS)
+CHAIN_LINKS = 2 ** 20         # dependent instructions per latency chain
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
 # 32-bit integer multiply-adds at 64 per clock per SM (CUDA C++
@@ -749,22 +758,66 @@ def phase_elementwise_claims(rows, device):
     torch.cuda.empty_cache()       # the plain versions' limb products
 
 
+def trace_design(entry):
+    """The C entry `entry` (mimc_trace's arguments) as a function of (x0,
+    consts, steps) on the current stream: a design timed beside the
+    kept kernel. It counts no launch: no main path runs it."""
+    import torch
+    from starks_tpu_torch.ops import _build
+    fn = getattr(_build.load(), entry)
+
+    def run(x0, consts, steps):
+        out = torch.empty((x0.shape[0], steps, 8), dtype=torch.int32,
+                          device=x0.device)
+        rc = fn(x0.data_ptr(), consts.data_ptr(), consts.shape[0],
+                out.data_ptr(), steps, x0.shape[0],
+                torch.cuda.current_stream(x0.device).cuda_stream)
+        check(rc == 0, f"{entry} returned {rc}")
+        return out
+    return run
+
+
+def chain_clocks(device):
+    """(t_mul, t_add): SM clocks per link of one thread's chain of
+    CHAIN_LINKS dependent IMAD.WIDE.U32 (no addend, as every product of
+    the trace kernel) and of dependent IADD3 with carry in and out
+    (`chain_probe_kernel`, clock64 around the chain)."""
+    import torch
+    from starks_tpu_torch.ops import _build
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    links = []
+    for kind in (0, 1):
+        rc = _build.load().starks_chain_probe(
+            kind, CHAIN_LINKS, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+        check(rc == 0, f"starks_chain_probe({kind}) returned {rc}")
+        torch.cuda.synchronize(device)
+        links.append(int(out[0]) / CHAIN_LINKS)
+    return tuple(links)
+
+
 def phase_trace(rows, device):
     """Phase 2, continued: the device MiMC trace (`mimc_trace_kernel`, the
     counterpart of a lax.scan, no Pallas kernel). Over TRACE_CLAIMS claims
     at TRACE_CHECK_STEPS steps it equals its plain version (the kernel's
-    row: device time, plain time and bound on these inputs). At the
-    all-device proof's shape (one claim through BIG_STEPS steps) its
-    first TRACE_CHECK_STEPS rows equal the plain version's and every row
-    the native host trace; with GLOBAL_TRACE_CONSTS constants (more than
-    shared memory holds: the variant that reads them from device memory)
-    its first TRACE_CHECK_STEPS rows equal the plain version's and all
-    GLOBAL_CHECK_STEPS rows the native trace (the plain version takes
-    about 12 ms a step); each is timed in ns per dependent step. Then the path
-    `models.mimc.trace_batch_device` of TRACE_CLAIMS claims at BIG_STEPS
-    steps, counted alone, equals the native host trace of each claim,
-    with its device time beside the native trace of the same claims.
-    Adds the row; returns the path's launch counts."""
+    row: device time, plain time and bound on these inputs). At every
+    claim count of TRACE_SHAPE_CLAIMS and constant count of
+    TRACE_SHAPE_CONSTS (inputs led by p - 1 and the structured values,
+    constants led by p - 1) its first TRACE_CHECK_STEPS rows equal the
+    plain version's and all GLOBAL_CHECK_STEPS rows the native host trace
+    (the plain version takes about 12 ms a step). At the all-device
+    proof's shape (one claim through BIG_STEPS steps) its first rows equal
+    the plain version's and every row the native trace. The design it
+    replaced (`starks_mimc_trace_canonical`, every intermediate
+    canonical) runs the same traces (equal to the kernel's) and is timed
+    beside it in turns, at one claim and at TRACE_CLAIMS claims x
+    BIG_STEPS, and with GLOBAL_TRACE_CONSTS constants, in ns per
+    dependent step; the kernel may be no slower. The chain floor: t_mul and t_add (chain_clocks) and 4 t_mul +
+    10 t_add clocks a step at the card's maximum SM clock, beside the
+    roofline bound. Then the path `models.mimc.trace_batch_device` of
+    TRACE_CLAIMS claims at BIG_STEPS steps, counted alone, equals the
+    native host trace of each claim. Adds the row; returns the path's
+    launch counts."""
     import numpy as np
     import torch
     from starks_tpu_torch.models import mimc
@@ -806,6 +859,35 @@ def phase_trace(rows, device):
           f"per-call {per_call:.6f} ms, plain {row['plain_ms']:.3f} ms, "
           f"bound {bound_ms:.6f} ms ({bound_by})", flush=True)
 
+    # Claim and constant counts, led by x0 = p - 1 and a constant p - 1.
+    gen = torch.Generator().manual_seed(SEED + 7)
+    front = ints_to_tensor([MODULUS - 1] + structured_ints(), device)
+    xs = with_edges(rand_elems(TRACE_CLAIMS, gen, device), front)
+    kg = with_edges(rand_elems(GLOBAL_TRACE_CONSTS, gen, device), front)
+    check(GLOBAL_TRACE_CONSTS > plimbs.SHARED_TRACE_CONSTS
+          and plimbs.SHARED_TRACE_CONSTS + 1 in TRACE_SHAPE_CONSTS,
+          "the checks cover both ways of reading the constants")
+    xs_ints = tensor_to_ints(xs)
+    for n_k in TRACE_SHAPE_CONSTS:
+        kk = kg[:n_k]
+        kk_ints = tensor_to_ints(kk)
+        plain = plimbs.mimc_trace_plain(xs, kk, TRACE_CHECK_STEPS)
+        native = np.stack([mimc.trace_limbs(x, GLOBAL_CHECK_STEPS, kk_ints)
+                           for x in xs_ints])
+        for claims in TRACE_SHAPE_CLAIMS:
+            got = plimbs.mimc_trace(xs[:claims], kk, GLOBAL_CHECK_STEPS)
+            head = got[:, :TRACE_CHECK_STEPS].to(torch.int64)
+            err_s = int((head - plain[:claims].to(torch.int64)).abs().max())
+            check(err_s == 0 and np.array_equal(got.cpu().numpy(),
+                                                native[:claims]),
+                  f"the trace of {claims} claims with {n_k} constants "
+                  f"differs from the plain version or the native trace")
+            row["max_abs_err"] = max(row["max_abs_err"], err_s)
+    print(f"  mimc_trace at {TRACE_SHAPE_CLAIMS} claims x "
+          f"{GLOBAL_CHECK_STEPS} steps with {TRACE_SHAPE_CONSTS} constants "
+          f"(x0 and a constant p - 1): the first {TRACE_CHECK_STEPS} rows "
+          f"equal to plain, every row to the native trace", flush=True)
+
     # The all-device proof's shape. The plain version takes a Python
     # step per row, so it checks the first rows; the native trace all.
     one = ints_to_tensor([INP], device)
@@ -818,53 +900,64 @@ def phase_trace(rows, device):
     t0 = time.perf_counter()
     mimc.trace_limbs(INP, BIG_STEPS, CONSTS)
     native_ms = (time.perf_counter() - t0) * 1e3
-    dev, per_call = kernel_times(lambda: plimbs.mimc_trace(one, k,
-                                                           BIG_STEPS),
-                                 device, reps=TRACE_REPS)
-    bound_ms, bound_by = bound(1, BIG_STEPS)
-    row["main_path"] = {
-        "shape": f"1 claim x {BIG_STEPS} steps", "ms": dev,
-        "call_ms": per_call, "ns_per_step": dev * 1e6 / (BIG_STEPS - 1),
-        "bound_ms": bound_ms, "bound_by": bound_by, "native_ms": native_ms}
-    print(f"  mimc_trace 1 claim x {BIG_STEPS} steps (the all-device "
-          f"proof's shape): first {TRACE_CHECK_STEPS} rows equal to plain, "
-          f"every row to the native trace; device {dev:.3f} ms "
-          f"({row['main_path']['ns_per_step']:.1f} ns per dependent step), "
-          f"per-call {per_call:.3f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}), native host trace {native_ms:.3f} ms", flush=True)
 
-    # More constants than shared memory holds.
-    gen = torch.Generator().manual_seed(SEED + 7)
-    kg = with_edges(rand_elems(GLOBAL_TRACE_CONSTS, gen, device),
-                    edge_elems(device))
-    check(kg.shape[0] > plimbs.SHARED_TRACE_CONSTS,
-          "the device-memory variant's check stages its constants")
-    xg = with_edges(rand_elems(CHECK_CLAIMS, gen, device), edge_elems(device))
-    got = plimbs.mimc_trace(xg, kg, GLOBAL_CHECK_STEPS)
-    err_g = max_abs_err(plimbs.mimc_trace, plimbs.mimc_trace_plain,
-                        (xg, kg, TRACE_CHECK_STEPS))
-    kg_ints = tensor_to_ints(kg)
-    check(all(np.array_equal(got[c].cpu().numpy(), mimc.trace_limbs(
-        x, GLOBAL_CHECK_STEPS, kg_ints)) for c, x in enumerate(
-        tensor_to_ints(xg))), f"the trace with {GLOBAL_TRACE_CONSTS} "
-        f"constants differs from the native trace")
-    row["max_abs_err"] = max(err, err_g)
-    dev, per_call = kernel_times(lambda: plimbs.mimc_trace(one, kg,
-                                                           BIG_STEPS),
-                                 device, reps=TRACE_REPS)
-    bound_ms, bound_by = bound(1, BIG_STEPS, GLOBAL_TRACE_CONSTS)
-    row["device_memory_consts"] = {
-        "shape": f"1 claim x {BIG_STEPS} steps, {GLOBAL_TRACE_CONSTS} "
-                 f"constants", "ms": dev, "call_ms": per_call,
-        "ns_per_step": dev * 1e6 / (BIG_STEPS - 1), "bound_ms": bound_ms,
-        "bound_by": bound_by, "max_abs_err": err_g}
-    print(f"  mimc_trace with {GLOBAL_TRACE_CONSTS} constants (read from "
-          f"device memory): {CHECK_CLAIMS} claims, the first "
-          f"{TRACE_CHECK_STEPS} steps equal to plain (max_abs_err {err_g}), "
-          f"all {GLOBAL_CHECK_STEPS} to the native trace; 1 claim x "
-          f"{BIG_STEPS} steps: device {dev:.3f} ms "
-          f"({row['device_memory_consts']['ns_per_step']:.1f} ns per "
-          f"dependent step), bound {bound_ms:.6f} ms ({bound_by})",
+    # The replaced design beside the kept one, checked against it, timed
+    # in turns (canonical, kept, kept, canonical).
+    designs = {"canonical": trace_design("starks_mimc_trace_canonical"),
+               "kept": plimbs.mimc_trace}
+    for name, run in designs.items():
+        check(torch.equal(run(one, k, BIG_STEPS), got),
+              f"trace design {name} differs from the kept kernel")
+    order = list(designs) + list(designs)[::-1]
+    shapes = {"main_path": (one, k), "full": (x0, k),
+              "device_memory_consts": (one, kg)}
+    timed = {}
+    for key, (xa, ka) in shapes.items():
+        ms = {name: [] for name in designs}
+        for name in order:
+            ms[name].append(kernel_times(
+                lambda: designs[name](xa, ka, BIG_STEPS), device,
+                reps=TRACE_REPS)[0])
+        timed[key] = {name: sum(v) / len(v) for name, v in ms.items()}
+        check(timed[key]["kept"] <= timed[key]["canonical"],
+              f"the trace kernel ({timed[key]['kept']:.3f} ms) is slower "
+              f"than the design it replaced ({timed[key]['canonical']:.3f} "
+              f"ms) at {key}")
+
+    t_mul, t_add = chain_clocks(device)
+    floor_clocks = 4 * t_mul + 10 * t_add
+    floor_ms = (BIG_STEPS - 1) * floor_clocks / (mhz * 1e3)
+    for key, (xa, ka) in shapes.items():
+        claims, n_k = xa.shape[0], ka.shape[0]
+        b_ms, b_by = bound(claims, BIG_STEPS, n_k)
+        dev = timed[key]["kept"]
+        entry = {"shape": f"{claims} claim(s) x {BIG_STEPS} steps, {n_k} "
+                          f"constants", "ms": dev,
+                 "ns_per_step": dev * 1e6 / (BIG_STEPS - 1),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "bound_share": b_ms / dev,
+                 "chain_floor_ms": floor_ms,
+                 "chain_floor_share": floor_ms / dev}
+        entry["canonical_ms"] = timed[key]["canonical"]
+        entry["canonical_ns_per_step"] = (timed[key]["canonical"] * 1e6
+                                          / (BIG_STEPS - 1))
+        row[key] = entry
+        print(f"  mimc_trace {entry['shape']}: kept {dev:.3f} ms "
+              f"({entry['ns_per_step']:.1f} ns per dependent step); "
+              f"canonical {entry['canonical_ms']:.3f} ms "
+              f"({entry['canonical_ns_per_step']:.1f} ns); bound "
+              f"{b_ms:.6f} ms ({b_by}, {entry['bound_share']:.4%}); chain "
+              f"floor {floor_ms:.3f} ms ({entry['chain_floor_share']:.2%})",
+              flush=True)
+    row["main_path"]["native_ms"] = native_ms
+    row["chain_floor"] = {"t_mul_clocks": t_mul, "t_add_clocks": t_add,
+                          "clocks_per_step": floor_clocks, "sm_mhz": mhz,
+                          "links": CHAIN_LINKS}
+    print(f"  chain floor: t_mul {t_mul:.3f} clocks (dependent IMAD.WIDE.U32"
+          f"), t_add {t_add:.3f} clocks (dependent IADD3 with carry), "
+          f"4 t_mul + 10 t_add = {floor_clocks:.3f} clocks a step at "
+          f"{mhz:.0f} MHz (maximum SM clock, nvidia-smi): {floor_ms:.3f} ms "
+          f"at 1 x {BIG_STEPS}; native host trace {native_ms:.3f} ms",
           flush=True)
 
     got, launches = counted(lambda: mimc.trace_batch_device(
@@ -872,20 +965,13 @@ def phase_trace(rows, device):
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     native = np.stack([mimc.trace_limbs(x, BIG_STEPS, CONSTS) for x in inps])
-    native_ms = (time.perf_counter() - t0) * 1e3
+    row["full"]["native_ms"] = (time.perf_counter() - t0) * 1e3
     check(np.array_equal(got.cpu().numpy(), native),
           f"the device trace of {TRACE_CLAIMS} claims differs from the "
           f"native host trace")
-    dev, _ = kernel_times(lambda: plimbs.mimc_trace(x0, k, BIG_STEPS),
-                          device, reps=TRACE_REPS)
-    bound_ms, bound_by = bound(TRACE_CLAIMS, BIG_STEPS)
-    row["full"] = {"shape": f"{TRACE_CLAIMS} claims x {BIG_STEPS} steps",
-                   "ms": dev, "bound_ms": bound_ms, "bound_by": bound_by,
-                   "native_ms": native_ms}
     print(f"  {TRACE}: trace_batch_device equals the native trace of every "
-          f"claim; device {dev:.3f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}), native host trace of the same claims "
-          f"{native_ms:.3f} ms (one thread)", flush=True)
+          f"claim; native host trace of the same claims "
+          f"{row['full']['native_ms']:.3f} ms (one thread)", flush=True)
     print_launches(launches)
     return launches
 
@@ -1765,9 +1851,10 @@ def phase_device_trace(device, host_proofs, launches):
     set-up it shares) and before the profiler. Each proof, counted
     alone, equals the host-trace proof of phases 4 and 9
     (`host_proofs`) byte for byte and verifies; it launches exactly one
-    trace kernel and every other kernel as often as that proof. Prints
-    the stage times (the device trace a stage of its own) and the calls
-    that wait for the card."""
+    trace kernel and every other kernel as often as that proof, and
+    waits for the card exactly once more than it (the last row's
+    read-back). Prints the stage times (the device trace a stage of its
+    own) and the calls that wait for the card."""
     import starks_tpu_torch as stt
     from starks_tpu_torch import prover
     for steps, path, host_path in ((BIG_STEPS, MIMC_DEV, MIMC),
@@ -1788,9 +1875,15 @@ def phase_device_trace(device, host_proofs, launches):
         check(launches[path] == want,
               f"{path} launches {launches[path]}, expected {want}")
         waits = count_syncs(run, device)
+        host_waits = count_syncs(lambda: stt.mk_mimc_proof(
+            INP, steps, CONSTS, device=device), device)
+        check(waits == host_waits + 1,
+              f"{path} waits for the card {waits} times, the host-trace "
+              f"proof {host_waits}: expected one more (the last row)")
         print(f"  {path}: equals the host-trace proof byte for byte; "
-              f"verified; {waits} calls that wait for the card (torch.cuda "
-              f"sync debug mode)", flush=True)
+              f"verified; {waits} calls that wait for the card, the "
+              f"host-trace proof {host_waits} (torch.cuda sync debug mode)",
+              flush=True)
         print_launches(launches[path])
         for stage, sec in steady.items():
             print(f"    {stage:<32s} {sec * 1e3:10.3f} ms", flush=True)
@@ -1856,7 +1949,7 @@ def count_syncs(run, device) -> int:
 # thread, the elementwise frames' op.
 FIELD_KERNEL = re.compile(
     r"^(?:void )?(?:_Z\d+)?(dif_pass|dit_pass|stream_map|flat_map|binary|db"
-    r"|l|fold4|mimc_trace)_kernel(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<(\w+)>)?"
+    r"|l|fold4|mimc_trace)_kernel(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<([\w, ]+)>)?"
     r"(?:\(|P|$)")
 # The wrapper (and LAUNCHES key) each kernel or template op serves.
 KERNEL_KEYS = {"db": "db_map", "l": "l_map", "ScaleOp": "scale",
@@ -1871,13 +1964,14 @@ PROFILE_PRIMER = 64
 
 
 def kernel_label(name) -> str:
-    """A field kernel's short name, with its template argument if any
-    (dit_pass<2>, stream_map<CubeOp>, binary<MulOp>); other names as
-    they are."""
+    """A field kernel's short name, with its template arguments if any
+    (dit_pass<2>, stream_map<CubeOp>, mimc_trace<SharedConsts,
+    RedundantRound>); other names as they are."""
     m = FIELD_KERNEL.match(name)
     if not m:
         return name
-    arg = m.group(2) or m.group(3) or m.group(4)
+    arg = m.group(2) or (m.group(3) and re.sub(r"\d+", ", ", m.group(3))
+                         ) or m.group(4)
     return f"{m.group(1)}<{arg}>" if arg else m.group(1)
 
 

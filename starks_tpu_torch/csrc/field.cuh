@@ -4,7 +4,9 @@
 // _cond_sub_p, _mul_lanes, _add_lanes, _sub_lanes, _cube_lanes). An
 // element is 8 little-endian 32-bit words of its canonical value; every
 // function takes canonical inputs and returns a canonical result, so any
-// correct reduction gives the TPU kernels' bits. The TPU's 16x16-bit
+// correct reduction gives the TPU kernels' bits. The exceptions are the
+// MiMC trace's lazy forms (fold_lazy, the *_chain functions,
+// mimc_round): any value below 2^256, which canonical() reduces. The TPU's 16x16-bit
 // column scheme was shaped by its 8x128 vector tiles; here a product is
 // an 8x8 schoolbook of 32x32->64-bit multiply-adds.
 //
@@ -161,10 +163,12 @@ FIELD_FN Fe sub(const Fe& a, const Fe& b) {
   return r;
 }
 
-// 512-bit product w = a * b, the 8x8 schoolbook on 64-bit accumulators.
-FIELD_FN void mul_wide(const Fe& a, const Fe& b, uint32_t w[16]) {
+// 512-bit w = a * b + add, the 8x8 schoolbook on 64-bit accumulators
+// (add enters as the first row's addend; the sum stays below 2^512).
+FIELD_FN void mul_wide(const Fe& a, const Fe& b, uint32_t w[16],
+                       const Fe& add = Fe{}) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) w[i] = 0;
+  for (int i = 0; i < 16; ++i) w[i] = i < 8 ? add.w[i] : 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     uint64_t carry = 0;
@@ -250,11 +254,152 @@ __device__ __forceinline__ Fe fold_dev(const uint32_t w[16]) {
   reduce_once_dev(g.w, top);
   return g;
 }
+
+// The MiMC trace's arithmetic (mimc_round), shaped for one warp's
+// dependent chain rather than for many warps' throughput. With one warp
+// nothing hides a stall, and each instruction holds its pipe as long as
+// a full warp's would. An IMAD.WIDE with a 32-bit addend takes that
+// addend as a register pair whose high word one more instruction (on
+// the multiply pipe, as ptxas places it) zeroes; so here every word
+// product is an IMAD.WIDE with no addend, every sum runs on the integer
+// ALU's carry chains, and the results are lazy (below 2^256, not always
+// canonical). PERF.md gives the designs timed against this one.
+
+// u[0..n] = sum_j t_j 2^(32j) for n 64-bit products t: u_j = lo(t_j) +
+// hi(t_{j-1}) on one carry chain.
+template <int n>
+__device__ __forceinline__ void row_sum(const uint64_t* t, uint32_t* u) {
+  u[0] = (uint32_t)t[0];
+  if constexpr (n == 1) {
+    u[1] = (uint32_t)(t[0] >> 32);
+  } else {
+    u[1] = ptx::add_cc((uint32_t)t[1], (uint32_t)(t[0] >> 32));
+#pragma unroll
+    for (int j = 2; j < n; ++j)
+      u[j] = ptx::addc_cc((uint32_t)t[j], (uint32_t)(t[j - 1] >> 32));
+    u[n] = ptx::addc((uint32_t)(t[n - 1] >> 32), 0);
+  }
+}
+
+// w[0..n] = w[0..n-1] + u[0..n] (w[n] is written, not read).
+template <int n>
+__device__ __forceinline__ void row_acc(uint32_t* w, const uint32_t* u) {
+  w[0] = ptx::add_cc(w[0], u[0]);
+#pragma unroll
+  for (int j = 1; j < n; ++j) w[j] = ptx::addc_cc(w[j], u[j]);
+  w[n] = ptx::addc(u[n], 0);
+}
+
+// w = a * b + add, row by row: row i's products a_j * b_i, its sum u on
+// one chain and u added into w on a second, so a row's products wait on
+// nothing and its chains on the row before only word by word.
+__device__ __forceinline__ void mul_wide_chain(const Fe& a, const Fe& b,
+                                               uint32_t w[16],
+                                               const Fe& add) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w[j] = add.w[j];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = (uint64_t)a.w[j] * b.w[i];
+    uint32_t u[9];
+    row_sum<8>(t, u);
+    row_acc<8>(w + i, u);
+  }
+}
+
+// Row i of the square's cross products: a_i * a_{i+1..7} at w[2i+1 ..
+// i+8] (row 0 writes them, later rows add).
+template <int i>
+__device__ __forceinline__ void sqr_cross_row(const Fe& a, uint32_t w[16]) {
+  constexpr int n = 7 - i;
+  uint64_t t[n];
+#pragma unroll
+  for (int j = 0; j < n; ++j) t[j] = (uint64_t)a.w[i + 1 + j] * a.w[i];
+  if constexpr (i == 0) {
+    row_sum<n>(t, w + 1);
+  } else {
+    uint32_t u[n + 1];
+    row_sum<n>(t, u);
+    row_acc<n>(w + 2 * i + 1, u);
+  }
+}
+
+// w = a^2: the 28 cross products in rows as mul_wide_chain's, doubled by
+// funnel shifts, then the 8 squares on the diagonal on one chain.
+__device__ __forceinline__ void sqr_wide_chain(const Fe& a, uint32_t w[16]) {
+  sqr_cross_row<0>(a, w);
+  sqr_cross_row<1>(a, w);
+  sqr_cross_row<2>(a, w);
+  sqr_cross_row<3>(a, w);
+  sqr_cross_row<4>(a, w);
+  sqr_cross_row<5>(a, w);
+  sqr_cross_row<6>(a, w);
+  w[15] = __funnelshift_l(w[14], 0u, 1);
+#pragma unroll
+  for (int i = 14; i > 1; --i) w[i] = __funnelshift_l(w[i - 1], w[i], 1);
+  w[1] <<= 1;
+  uint64_t d[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d[i] = (uint64_t)a.w[i] * a.w[i];
+  w[0] = (uint32_t)d[0];
+  w[1] = ptx::add_cc(w[1], (uint32_t)(d[0] >> 32));
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    w[2 * i] = ptx::addc_cc(w[2 * i], (uint32_t)d[i]);
+    w[2 * i + 1] = i < 7 ? ptx::addc_cc(w[2 * i + 1], (uint32_t)(d[i] >> 32))
+                         : ptx::addc(w[15], (uint32_t)(d[7] >> 32));
+  }
+}
+
+// w mod p as a value below 2^256, not always canonical: fold 1 as f = lo
+// + v*2^32 - hi with v = 351*hi from products with no addend (row_sum),
+// fold 2 as in fold_dev, then g + top*c, which cannot carry out of word
+// 2 (g < 2^83 when top is 1). No conditional subtract.
+__device__ __forceinline__ Fe fold_lazy_chain(const uint32_t w[16]) {
+  const uint32_t* hi = w + 8;
+  uint64_t q[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) q[j] = (uint64_t)hi[j] * C_MUL;
+  uint32_t v[9];
+  row_sum<8>(q, v);
+  uint32_t f[10];
+  f[0] = w[0];
+  f[1] = ptx::add_cc(w[1], v[0]);
+#pragma unroll
+  for (int j = 2; j < 8; ++j) f[j] = ptx::addc_cc(w[j], v[j - 1]);
+  f[8] = ptx::addc_cc(v[7], 0);
+  f[9] = ptx::addc(v[8], 0);
+  f[0] = ptx::sub_cc(f[0], hi[0]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) f[j] = ptx::subc_cc(f[j], hi[j]);
+  f[8] = ptx::subc_cc(f[8], 0);
+  f[9] = ptx::subc(f[9], 0);
+
+  const uint64_t n = (uint64_t)f[8] * C_MUL;
+  const uint32_t n1 = (uint32_t)(n >> 32) + f[9] * C_MUL;
+  const uint32_t d0 = ptx::sub_cc(0, f[8]);
+  const uint32_t d1 = ptx::subc_cc((uint32_t)n, f[9]);
+  const uint32_t d2 = ptx::subc(n1, 0);
+  Fe g;
+  g.w[0] = ptx::add_cc(f[0], d0);
+  g.w[1] = ptx::addc_cc(f[1], d1);
+  g.w[2] = ptx::addc_cc(f[2], d2);
+#pragma unroll
+  for (int j = 3; j < 8; ++j) g.w[j] = ptx::addc_cc(f[j], 0);
+  const uint32_t m = 0u - ptx::addc(0, 0);
+  g.w[0] = ptx::add_cc(g.w[0], C0 & m);
+  g.w[1] = ptx::addc_cc(g.w[1], C1 & m);
+  g.w[2] = ptx::addc(g.w[2], 0);
+  return g;
+}
 #endif
 
-// w mod p on the host for w < 2^512: the same two folds by c on 64-bit
-// accumulators, then the carry fold and one conditional subtract.
-FIELD_FN Fe fold(const uint32_t w[16]) {
+// w mod p on the host for w < 2^512 as a value below 2^256, not always
+// canonical (a lazy fold): the same two folds by c on 64-bit
+// accumulators, then the carry fold.
+FIELD_FN Fe fold_lazy(const uint32_t w[16]) {
   // Fold 1: f = lo + hi * c < 2^298 (10 words).
   uint32_t f[10];
   uint64_t carry = 0;
@@ -304,6 +449,13 @@ FIELD_FN Fe fold(const uint32_t w[16]) {
     g.w[i] = (uint32_t)t;
     carry = t >> 32;
   }
+  return g;
+}
+
+// w mod p on the host for w < 2^512: the lazy fold and one conditional
+// subtract.
+FIELD_FN Fe fold(const uint32_t w[16]) {
+  Fe g = fold_lazy(w);
   reduce_once(g.w, 0);
   return g;
 }
@@ -430,5 +582,36 @@ FIELD_FN Fe div4(const Fe& x) {
 }
 
 FIELD_FN Fe cube(const Fe& a) { return mul(sqr(a), a); }
+
+// x, canonical, for any x below 2^256 (x < 2p).
+FIELD_FN Fe canonical(Fe x) {
+#ifdef __CUDA_ARCH__
+  reduce_once_dev(x.w, 0);
+#else
+  reduce_once(x.w, 0);
+#endif
+  return x;
+}
+
+// One MiMC round in redundant form: x^3 + k mod p as a value below 2^256,
+// not always canonical, for any x and k below 2^256. The square and the
+// product fold lazily (no conditional subtract), and k enters the
+// product as its first row's addend (s*x + k < 2^512), so neither a
+// conditional subtract nor an add lies on the chain from x to the next
+// x; canonical() of the result is the trace's row.
+FIELD_FN Fe mimc_round(const Fe& x, const Fe& k) {
+  uint32_t w[16];
+#ifdef __CUDA_ARCH__
+  sqr_wide_chain(x, w);
+  const Fe s = fold_lazy_chain(w);
+  mul_wide_chain(s, x, w, k);
+  return fold_lazy_chain(w);
+#else
+  sqr_wide(x, w);
+  const Fe s = fold_lazy(w);
+  mul_wide(s, x, w, k);
+  return fold_lazy(w);
+#endif
+}
 
 }  // namespace field

@@ -589,12 +589,16 @@ KERNEL binary_kernel(const Fe* __restrict__ a, uint32_t a_len,
 // trace_batch_device, starks_tpu/models/mimc.py; no Pallas kernel):
 // trace[c][0] = x0[c], trace[c][i + 1] = trace[c][i]^3 + k[i % n_k].
 // The recurrence is sequential, so each thread runs one claim through
-// every step; blocks of one warp spread the claims over the SMs. A step
-// is a chain of dependent modmuls, bound by their latency, not by any
-// shared resource. The next step's constant is loaded while the cube
-// runs. Up to kMaxTraceConsts constants are staged in shared memory
-// (SharedConsts); more are read from device memory through the
-// read-only cache (GlobalConsts), which the one-step-ahead load hides.
+// every step; blocks of one warp spread the claims over the SMs. With
+// one claim a step is one warp's dependent chain: nothing hides its
+// latency, and every instruction holds its pipe as long as a full
+// warp's would. So the state is carried in redundant form
+// (field::mimc_round: lazy folds, k in the product's first row) and
+// only the stored row is made canonical, off the chain. The next
+// step's constant is loaded while the step runs. Up to kMaxTraceConsts
+// constants are staged in shared memory (SharedConsts); more are read
+// from device memory through the read-only cache (GlobalConsts), which
+// the one-step-ahead load hides.
 struct SharedConsts {
   static constexpr bool kStaged = true;
   OP_FN Fe load(const Fe* k, uint32_t j) { return k[j]; }
@@ -613,7 +617,22 @@ struct GlobalConsts {
   }
 };
 
-template <class Consts>
+// A step of the trace: the next state from x and k, and the row stored.
+struct RedundantRound {
+  OP_FN Fe next(const Fe& x, const Fe& k) { return field::mimc_round(x, k); }
+  OP_FN Fe row(const Fe& x) { return field::canonical(x); }
+};
+
+// The earlier design, kept as the yardstick it is timed against: every
+// intermediate canonical, a cube, then an add.
+struct CanonicalRound {
+  OP_FN Fe next(const Fe& x, const Fe& k) {
+    return field::add(field::cube(x), k);
+  }
+  OP_FN Fe row(const Fe& x) { return x; }
+};
+
+template <class Consts, class Round>
 FIELD_FN void mimc_trace_claim(Fe x, const Fe* consts, uint32_t n_k, Fe* out,
                                uint32_t steps) {
   out[0] = x;
@@ -621,8 +640,8 @@ FIELD_FN void mimc_trace_claim(Fe x, const Fe* consts, uint32_t n_k, Fe* out,
   for (uint32_t i = 0, j = 0; i + 1 < steps; ++i) {
     j = j + 1 == n_k ? 0 : j + 1;
     const Fe next = Consts::load(consts, j);
-    x = field::add(field::cube(x), k);
-    out[i + 1] = x;
+    x = Round::next(x, k);
+    out[i + 1] = Round::row(x);
     k = next;
   }
 }
@@ -634,7 +653,7 @@ constexpr uint32_t kMaxTraceConsts = (48u << 10) / sizeof(Fe);
 #ifdef __CUDACC__
 constexpr uint32_t kTraceThreads = 32;
 
-template <class Consts>
+template <class Consts, class Round>
 __global__ void mimc_trace_kernel(const Fe* __restrict__ x0,
                                   const Fe* __restrict__ consts,
                                   uint32_t n_k, Fe* __restrict__ out,
@@ -646,14 +665,83 @@ __global__ void mimc_trace_kernel(const Fe* __restrict__ x0,
       k_sh[j] = consts[j];
     __syncthreads();
     if (c < batch)
-      mimc_trace_claim<Consts>(x0[c], k_sh, n_k, out + (size_t)c * steps,
-                               steps);
+      mimc_trace_claim<Consts, Round>(x0[c], k_sh, n_k,
+                                      out + (size_t)c * steps, steps);
   } else if (c < batch) {
-    mimc_trace_claim<Consts>(x0[c], consts, n_k, out + (size_t)c * steps,
-                             steps);
+    mimc_trace_claim<Consts, Round>(x0[c], consts, n_k,
+                                    out + (size_t)c * steps, steps);
   }
 }
+
+// The latencies of the trace's chain floor (chip_smoke.py phase 2): one
+// thread runs `links` dependent instructions, an IMAD.WIDE.U32 with no
+// addend (t = lo(t) * b, as every product of mimc_round) for kind 0, an
+// IADD3 with carry in and out (x = x + b + carry) for kind 1, and writes
+// the SM clocks they took and the chain's value. The operands differ by
+// thread, so the chain runs on the vector datapath.
+constexpr uint32_t kProbeUnroll = 16;
+
+__global__ void chain_probe_kernel(uint32_t kind, uint32_t links,
+                                   uint32_t seed,
+                                   unsigned long long* __restrict__ out) {
+  uint64_t t = seed ^ threadIdx.x;
+  uint32_t x = seed + threadIdx.x;
+  const uint32_t b = (seed ^ threadIdx.x) * 2654435761u + 1u;
+  const long long t0 = clock64();
+  if (kind == 0) {
+    for (uint32_t i = 0; i < links; i += kProbeUnroll) {
+#pragma unroll
+      for (uint32_t u = 0; u < kProbeUnroll; ++u)
+        asm volatile("mul.wide.u32 %0, %1, %2;"
+                     : "=l"(t) : "r"((uint32_t)t), "r"(b));
+    }
+  } else {
+    for (uint32_t i = 0; i < links; i += kProbeUnroll)
+      asm volatile(
+          "add.cc.u32 %0, %0, %1;\n\t"
+          "addc.cc.u32 %0, %0, %1;\n\taddc.cc.u32 %0, %0, %1;\n\t"
+          "addc.cc.u32 %0, %0, %1;\n\taddc.cc.u32 %0, %0, %1;\n\t"
+          "addc.cc.u32 %0, %0, %1;\n\taddc.cc.u32 %0, %0, %1;\n\t"
+          "addc.cc.u32 %0, %0, %1;\n\taddc.cc.u32 %0, %0, %1;\n\t"
+          "addc.cc.u32 %0, %0, %1;\n\taddc.cc.u32 %0, %0, %1;\n\t"
+          "addc.cc.u32 %0, %0, %1;\n\taddc.cc.u32 %0, %0, %1;\n\t"
+          "addc.cc.u32 %0, %0, %1;\n\taddc.cc.u32 %0, %0, %1;\n\t"
+          "addc.u32 %0, %0, %1;"
+          : "+r"(x) : "r"(b));
+  }
+  const long long t1 = clock64();
+  out[0] = (unsigned long long)(t1 - t0);
+  out[1] = t ^ x;
+}
 #endif
+
+template <class Round>
+int mimc_trace_launch(const Fe* x0, const Fe* consts, uint32_t n_k, Fe* out,
+                      uint32_t steps, uint32_t batch, void* stream) {
+  if (n_k == 0) return -1;
+#ifdef __CUDACC__
+  const uint32_t blocks = (batch + kTraceThreads - 1) / kTraceThreads;
+  if (steps && batch && n_k <= kMaxTraceConsts)
+    mimc_trace_kernel<SharedConsts, Round>
+        <<<blocks, kTraceThreads, n_k * sizeof(Fe), (cudaStream_t)stream>>>(
+            x0, consts, n_k, out, steps, batch);
+  else if (steps && batch)
+    mimc_trace_kernel<GlobalConsts, Round>
+        <<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
+            x0, consts, n_k, out, steps, batch);
+  return (int)cudaGetLastError();
+#else
+  (void)stream;
+  for (uint32_t c = 0; c < batch; ++c) {
+    Fe* oc = out + (size_t)c * steps;
+    if (n_k <= kMaxTraceConsts)
+      mimc_trace_claim<SharedConsts, Round>(x0[c], consts, n_k, oc, steps);
+    else
+      mimc_trace_claim<GlobalConsts, Round>(x0[c], consts, n_k, oc, steps);
+  }
+  return 0;
+#endif
+}
 
 #define F(ptr) ((const Fe*)(ptr))
 #define W(ptr) ((Fe*)(ptr))
@@ -833,28 +921,33 @@ int starks_cube(const void* a, void* out, uint32_t n, uint32_t batch,
 int starks_mimc_trace(const void* x0, const void* consts, uint32_t n_k,
                       void* out, uint32_t steps, uint32_t batch,
                       void* stream) {
-  if (n_k == 0) return -1;
+  return mimc_trace_launch<RedundantRound>(F(x0), F(consts), n_k, W(out),
+                                           steps, batch, stream);
+}
+
+// The same traces by the earlier design (every intermediate canonical),
+// which the kernel is timed beside.
+int starks_mimc_trace_canonical(const void* x0, const void* consts,
+                                uint32_t n_k, void* out, uint32_t steps,
+                                uint32_t batch, void* stream) {
+  return mimc_trace_launch<CanonicalRound>(F(x0), F(consts), n_k, W(out),
+                                           steps, batch, stream);
+}
+
+// One thread's chain of `links` (a multiple of 16) dependent
+// instructions, kind 0 IMAD.WIDE.U32, kind 1 IADD3 with carry: out[0] =
+// the SM clocks it took. Needs a card (-1 without).
+int starks_chain_probe(uint32_t kind, uint32_t links, void* out,
+                       void* stream) {
+  if (kind > 1 || links % 16) return -1;
 #ifdef __CUDACC__
-  const uint32_t blocks = (batch + kTraceThreads - 1) / kTraceThreads;
-  if (steps && batch && n_k <= kMaxTraceConsts)
-    mimc_trace_kernel<SharedConsts>
-        <<<blocks, kTraceThreads, n_k * sizeof(Fe), (cudaStream_t)stream>>>(
-            F(x0), F(consts), n_k, W(out), steps, batch);
-  else if (steps && batch)
-    mimc_trace_kernel<GlobalConsts>
-        <<<blocks, kTraceThreads, 0, (cudaStream_t)stream>>>(
-            F(x0), F(consts), n_k, W(out), steps, batch);
+  chain_probe_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+      kind, links, 12345u, (unsigned long long*)out);
   return (int)cudaGetLastError();
 #else
+  (void)out;
   (void)stream;
-  for (uint32_t c = 0; c < batch; ++c) {
-    Fe* oc = W(out) + (size_t)c * steps;
-    if (n_k <= kMaxTraceConsts)
-      mimc_trace_claim<SharedConsts>(F(x0)[c], F(consts), n_k, oc, steps);
-    else
-      mimc_trace_claim<GlobalConsts>(F(x0)[c], F(consts), n_k, oc, steps);
-  }
-  return 0;
+  return -1;
 #endif
 }
 

@@ -8,7 +8,7 @@ sequential per proof, so the provers build it on the host, in the
 native runtime (`trace_limbs`; `trace_host` is its plain bigint
 version), and upload it whole (2 MB at 2^16 steps). `trace_batch_device`
 runs the traces of a claim batch on the card instead, one thread per
-claim; the all-device proof (`prover.mk_mimc_proof_fused(device_trace=
+claim (a step a dependent chain); the all-device proof (`prover.mk_mimc_proof_fused(device_trace=
 True)`) takes its trace from it.
 """
 
@@ -65,11 +65,14 @@ def trace_batch_device(inps, steps: int, round_constants, device=None):
     (`prover.mk_mimc_proof_fused(device_trace=True)`) takes its trace
     from here, as the JAX package's device-trace core takes it from its
     scan; the other provers take theirs from `trace_limbs`. `device`
-    None means "cuda"; `device="cpu"` runs the plain version."""
-    from ..prover import _resolve_device
+    None means "cuda"; `device="cpu"` runs the plain version. The
+    inputs and constants go up through pinned memory on the current
+    stream, so the host does not wait for the card."""
+    from ..prover import _resolve_device, _upload
     device = _resolve_device(device)
-    x0 = ints_to_tensor([x % MODULUS for x in inps], device)
-    consts = ints_to_tensor([c % MODULUS for c in round_constants], device)
+    x0 = _upload(ints_to_tensor([x % MODULUS for x in inps]), device)
+    consts = _upload(ints_to_tensor([c % MODULUS for c in round_constants]),
+                     device)
     return plimbs.mimc_trace(x0, consts, steps)
 
 

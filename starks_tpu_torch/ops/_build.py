@@ -37,6 +37,8 @@ SIGNATURES = {
     "starks_sub": [_P, _U, _U, _P, _U, _U, _P, _U, _U, _P],
     "starks_cube": [_P, _P, _U, _U, _P],
     "starks_mimc_trace": [_P, _P, _U, _P, _U, _U, _P],
+    "starks_mimc_trace_canonical": [_P, _P, _U, _P, _U, _U, _P],
+    "starks_chain_probe": [_U, _U, _P, _P],
 }
 
 _LIB = None

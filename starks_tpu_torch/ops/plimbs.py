@@ -617,12 +617,17 @@ def mimc_trace(x0, consts, steps: int):
     (starks_tpu/models/mimc.py:65-80), which is no Pallas kernel; the
     all-device proof (`prover.mk_mimc_proof_fused(device_trace=True)`)
     runs it. Runs `mimc_trace_kernel` (csrc/kernels.cu): one thread per
-    claim through every step, the constants in shared memory (up to
-    SHARED_TRACE_CONSTS) or read from device memory a step ahead. Bound:
-    the larger of its bytes (32 * B * steps written) and its operations
-    (a cube and an add per claim and step); each claim's steps are a
-    chain of dependent modmuls, so with few claims their latency holds
-    it far above both."""
+    claim through every step, the state in redundant form
+    (`field::mimc_round`: lazy folds, k in the product's first row,
+    only the stored row made canonical), the constants in shared memory
+    (up to SHARED_TRACE_CONSTS) or read from device memory a step ahead.
+    Bound: the larger of its bytes (32 * B * steps written) and its
+    operations (a cube and an add per claim and step). Each claim's
+    steps are one dependent chain, so with few claims that chain holds
+    it far above both; its floor, 4 dependent multiplies and 10
+    dependent adds a step (two products, each a multiply and a 3-level
+    add tree, each followed by a fold of a multiply and 2 levels), is
+    timed beside it by chip_smoke.py."""
     if x0.dim() != 2 or x0.shape[0] == 0:
         raise ValueError("x0 must be [B, 8]")
     if consts.dim() != 2 or consts.shape[0] == 0:

@@ -798,6 +798,53 @@ def test_host_mimc_trace_reads_many_constants_from_device_memory(
                                                               consts)))
 
 
+# The trace's redundant form at its edges: inputs 1 (with the constant
+# p - 1 its first step lands on p exactly), p - 2 (the second constant is
+# solved on the host so that its second step lands on p), p - 1, 0 and
+# 2^255; constant counts 1, 5, all of shared memory and one more.
+TRACE_EDGE_INPUTS = [1, M - 2, M - 1, 0, 2 ** 255]
+
+
+@functools.lru_cache(maxsize=None)
+def _trace_edge_consts():
+    r = random.Random(170)
+    x1 = ((M - 2) ** 3 + (M - 1)) % M     # claim 1 after its first step
+    solved = (M - x1 ** 3 % M) % M         # x1^3 + solved == p
+    assert x1 ** 3 % M + solved == M
+    return [M - 1, solved] + [r.randrange(M) for _ in range(
+        plimbs.SHARED_TRACE_CONSTS - 1)]
+
+
+@pytest.mark.parametrize("steps", [1, 2, 64])
+@pytest.mark.parametrize("claims", [1, 3, 5])
+@pytest.mark.parametrize("n_k", [1, 5, 1536, 1537])
+@pytest.mark.parametrize("entry", ["starks_mimc_trace",
+                                   "starks_mimc_trace_canonical"])
+def test_host_mimc_trace_redundant_form_edges(host_kernels, entry, n_k,
+                                              claims, steps):
+    """mimc_trace_kernel's round (field::mimc_round: lazy folds, k in the
+    product's first row, the stored row made canonical) and the design it
+    replaced, as g++ builds them, against the plain version and the
+    native trace at the redundant form's edges; 1537 constants take the
+    device-memory variant."""
+    from starks_tpu_torch.utils import native
+    from starks_tpu_torch.utils.conversions import ints_to_tensor
+    consts = _trace_edge_consts()[:n_k]
+    inps = TRACE_EDGE_INPUTS[:claims]
+    x0, k = ints_to_tensor(inps), ints_to_tensor(consts)
+    (out,) = _host_call(host_kernels, entry, [x0, k, n_k], [steps, claims],
+                        [(claims, steps, 8)])
+    assert out.equal(plimbs.mimc_trace_plain(x0, k, steps))
+    for c, x in enumerate(inps):
+        assert out[c].equal(torch.from_numpy(native.mimc_trace(x, steps,
+                                                               consts)))
+    # The steps that land on p store 0.
+    if steps > 1:
+        assert not out[0, 1].any()
+    if steps > 2 and claims > 1 and n_k > 1:
+        assert not out[1, 2].any()
+
+
 def test_mimc_trace_rejects_bad_arguments(host_kernels):
     x0, k = _rand(3, 90)[1], _rand(8, 91)[1]
     with pytest.raises(ValueError):
