@@ -65,11 +65,11 @@ Phases (any failure exits non-zero and prints no result):
      all timed proofs: CUDA launches, device busy share against the
      steady stage-timed wall time, device time of the field kernels, and
      each field kernel's launches as the profiler lists them beside the
-     port's counters for the same run (a session after the first in a
-     process drops its first launches of the port's kernels, so each
-     profile starts with a primer of its own launches; whatever the
-     profiler still loses is printed, and the busy share is then marked
-     a lower bound);
+     port's counters for the same run (a profiler session drops its
+     first launches of the port's kernels, so each profile starts with
+     a primer of its own launches and counts only the device events
+     inside the profiled run's range; whatever the profiler still loses
+     is printed, and the busy share is then marked a lower bound);
   8. every kernel's launches on each main path: the steady MiMC 2^16,
      fib-square 2^13 and 2^16 proofs, the MiMC-as-AIR proof, the batch
      and AIR chunks, the all-device proofs and the device trace, each
@@ -112,8 +112,17 @@ Phases (any failure exits non-zero and prints no result):
      kernel and every other kernel as often as that proof; stage times
      (the device trace a stage of its own) and the calls that wait for
      the card: exactly one more than the host-trace proof's.
-Phase 8 also requires the config 4 paths, the all-device proofs and the
-device trace to launch only their kernels.
+  12. config 5 over ranks (`parallel.launch.batch_rank`), run after phase
+     6 and before the profiled proofs: two ranks started by
+     `parallel.launch.run` share the card (gloo) and prove_batch claims
+     0-15 at 2^16 steps, each its contiguous slice of 8 in one chunk of
+     8, verified, with a proof store of its own; the proofs gathered on
+     rank 0 as wire bytes equal phase 6's byte for byte; per rank and
+     aggregate proofs/s (two ranks on one card: correctness, not
+     scaling) and each rank's launches, counted alone: one chunk's, as
+     one MiMC 2^16 proof's.
+Phase 8 also requires the config 4 paths, the all-device proofs, the
+device trace and config 5 over ranks to launch only their kernels.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -144,6 +153,10 @@ BATCH_CHUNK = 16
 CONFIG4_STEPS = 2 ** 20       # BASELINE.md config 4: 2^20 steps, 2^23 points
 SHARDS = 4                    # config 4's mesh: four ranks, one row
 SHARD_TIMEOUT_S = 600
+DP_RANKS = 2                  # config 5 over ranks, sharing the card ...
+DP_CLAIMS = 16                # ... claims 0-15 of phase 6 ...
+DP_CHUNK = 8                  # ... one chunk a rank
+DP_TIMEOUT_S = 300
 AIR_CHUNK = 16                # fib-square claims per AIR batch chunk
 MIMC_AIR_CLAIMS = 4           # MiMC as an AIR over a claim axis
 TRACE_CLAIMS = 64             # the device MiMC trace: claims x BIG_STEPS
@@ -208,6 +221,8 @@ MIMC_AIR = f"MiMC-as-AIR {SMALL_STEPS}"
 BATCH = f"batch chunk of {BATCH_CHUNK} x MiMC {BIG_STEPS}"
 AIR_BATCH = f"AIR chunk of {AIR_CHUNK} x fib-square {BIG_STEPS}"
 TRACE = f"device MiMC trace, {TRACE_CLAIMS} x {BIG_STEPS}"
+BATCH_DP = (f"config 5 over {DP_RANKS} ranks, {DP_CLAIMS} x MiMC "
+            f"{BIG_STEPS}, per rank")
 MIMC4 = f"MiMC {CONFIG4_STEPS}"
 MIMC_DEV = f"MiMC {BIG_STEPS}, device trace"
 MIMC4_DEV = f"MiMC {CONFIG4_STEPS}, device trace"
@@ -229,6 +244,7 @@ PATH_KERNELS = {
     MIMC_DEV: NTT_FRI + ["db_map", "l_map", "mimc_trace"],
     MIMC4_DEV: NTT_FRI + ["db_map", "l_map", "mimc_trace"],
     TRACE: ["mimc_trace"],
+    BATCH_DP: NTT_FRI + ["db_map", "l_map"],
 }
 
 
@@ -1477,7 +1493,45 @@ def phase_batch(device, small_oracle):
     print(f"  host trace per claim at {BIG_STEPS} steps: native "
           f"{native_ms:.3f} ms (mean of {reps}), plain bigints {plain_ms:.3f} "
           f"ms (one)", flush=True)
-    return per_chunk[BATCH_CHUNK], launches
+    return per_chunk[BATCH_CHUNK], launches, proofs
+
+
+def phase_batch_ranks(proofs, launches):
+    """Phase 12: config 5 over ranks. DP_RANKS ranks (parallel.launch.run;
+    one card: they share it, over gloo) each prove_batch their slice of
+    claims 0 .. DP_CLAIMS - 1 at BIG_STEPS steps in one chunk of
+    DP_CHUNK, verified (`parallel.launch.batch_rank`); the proofs,
+    gathered on rank 0 as wire bytes, equal phase 6's `proofs` of the
+    same inputs. Prints each rank's figures and the aggregate, and puts
+    rank 0's launches into `launches` (each rank's counted alone, from
+    just before its steady prove_batch to just after)."""
+    import torch
+    from starks_tpu_torch.parallel import launch
+    check(launch.batch_consts(BIG_STEPS) == CONSTS,
+          "launch batch's round constants are not this script's")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = launch.run(launch.batch_rank, DP_RANKS, BIG_STEPS, DP_CLAIMS,
+                     DP_CHUNK, "cuda", device="cuda",
+                     timeout=DP_TIMEOUT_S)[0]
+    wall = time.perf_counter() - t0
+    check(out["proofs"] == proofs[:DP_CLAIMS],
+          f"a proof gathered from {DP_RANKS} ranks differs from phase 6's")
+    ranks = out["ranks"]
+    for rank, r in enumerate(ranks):
+        check(r["n"] == DP_CLAIMS // DP_RANKS and r["alone"] == 0,
+              f"rank {rank} proved {r['n']} claims, {r['alone']} alone")
+        check(r["launches"] == ranks[0]["launches"],
+              f"rank {rank} launches {r['launches']}, rank 0 "
+              f"{ranks[0]['launches']}")
+    print(f"  {DP_RANKS} ranks ({out['transport']}) on "
+          f"{sorted({r['device'] for r in ranks})}; the {DP_CLAIMS} proofs "
+          f"gathered on rank 0 as wire bytes equal phase 6's byte for byte "
+          f"({wall:.1f} s for the whole launch, start-up included); "
+          f"{DP_RANKS} ranks share one card: correctness, not scaling",
+          flush=True)
+    launch.print_batch(out, BIG_STEPS, DP_CLAIMS, "one card")
+    launches[BATCH_DP] = ranks[0]["launches"]
 
 
 def phase_air_batch(device, fib_proof16):
@@ -1955,12 +2009,18 @@ FIELD_KERNEL = re.compile(
 KERNEL_KEYS = {"db": "db_map", "l": "l_map", "ScaleOp": "scale",
                "ScaleAccOp": "scale", "CubeOp": "cube", "MulOp": "mul",
                "AddOp": "add", "SubOp": "sub"}
-# A profiler session after the first in a process drops the first few
-# launches of the port's kernels (up to 17 of these 64 on an H100 with
-# torch 2.11), while it keeps torch's kernels around them. So each
-# profile first makes PROFILE_PRIMER launches of its own, ends them
-# with a spin on the card, and counts only what follows the spin.
-PROFILE_PRIMER = 64
+# A profiler session drops its first few launches of the port's kernels
+# (on an H100 with torch 2.11, more as sessions accumulate in a
+# process), while it keeps torch's kernels around them. So each profile
+# first makes PROFILE_PRIMER launches of its own, waits for the card,
+# and counts only the device events that start inside the proof's own
+# range (`record_function`): none of the primer's can, and no marker
+# event has to be listed.
+PROFILE_PRIMER = 256
+PROFILE_RANGE = "chip_smoke: profiled run"
+# Sessions tried before a profile whose range lists no kernel on the
+# card is reported as not measured.
+PROFILE_TRIES = 3
 
 
 def kernel_label(name) -> str:
@@ -1984,63 +2044,85 @@ def kernel_key(m) -> str:
 
 def prime_profiler(device):
     """PROFILE_PRIMER launches of the port's add kernel on one element,
-    then a spin on the card (torch's spin_kernel) that marks their
-    end."""
+    then a wait for the card, so that every one ends before the
+    profiled range starts."""
     import torch
     from starks_tpu_torch.ops import plimbs
     one = torch.ones((1, 8), dtype=torch.int32, device=device)
     for _ in range(PROFILE_PRIMER):
         plimbs.add(one, one)
-    torch.cuda._sleep(1000)
+    torch.cuda.synchronize(device)
 
 
-def profile_proof(run, device, steady_s):
-    """One more proof (`run`) under torch.profiler, after the primer: the
-    CUDA kernels it launched, their device time, that time's share of
-    the steady (stage-timed) wall time, the device time of the field
-    kernels, and each field kernel's launches as the profiler lists them
-    beside the port's counters (LAUNCHES) for the same run. Launches the
-    profiler lost are printed per kernel, and then the busy share is
-    marked a lower bound."""
+def profiled_events(run, device):
+    """`run()` under torch.profiler after the primer: the device events
+    (start ns, duration us, name) of the profiler's raw (kineto) events
+    that start inside the range around `run()`, those that start
+    before it, and the port's counters (LAUNCHES) for the run. The raw
+    events hold the same device events as prof.events(), which first
+    builds a tree of every CPU and CUDA event (~540k for a 2^16-step
+    proof: 46 s of host time a profile on the H100's host, against 3 s
+    for these)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from starks_tpu_torch.ops import plimbs
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prime_profiler(device)
-        plimbs.reset_launches()
-        run()
-        torch.cuda.synchronize(device)
+        with record_function(PROFILE_RANGE):
+            plimbs.reset_launches()
+            run()
+            torch.cuda.synchronize(device)
         counts = dict(plimbs.LAUNCHES)
-    # The profiler's raw (kineto) events: the same device events as
-    # prof.events(), which first builds a tree of every CPU and CUDA
-    # event (~540k for a 2^16-step proof: 46 s of host time a profile
-    # on the H100's host, against 3 s for these).
-    events = sorted(((evt.start_ns(), evt.duration_ns() / 1e3, evt.name())
-                     for evt in prof.profiler.kineto_results.events()
-                     if evt.device_type() == torch.autograd.DeviceType.CUDA))
-    spins = [i for i, (_, _, name) in enumerate(events)
-             if "spin_kernel" in name]
-    check(spins, "the profiler lists no spin after the primer")
-    primer = sum(bool(FIELD_KERNEL.match(name))
-                 for _, _, name in events[:spins[0]])
-    launches, device_us, field_us, seen = 0, 0.0, {}, {}
-    for _, us, name in events[spins[0] + 1:]:
-        if "memcpy" in name.lower() or "memset" in name.lower():
-            continue
-        launches += 1
+    raw = list(prof.profiler.kineto_results.events())
+    start = min(evt.start_ns() for evt in raw if evt.name() == PROFILE_RANGE)
+    # The range itself is listed on the card's timeline too, spanning the
+    # run's kernels: it is no kernel.
+    events = sorted((evt.start_ns(), evt.duration_ns() / 1e3, evt.name())
+                    for evt in raw
+                    if evt.device_type() == torch.autograd.DeviceType.CUDA
+                    and evt.name() != PROFILE_RANGE)
+    inside = [evt for evt in events if evt[0] >= start]
+    return inside, events[:len(events) - len(inside)], counts
+
+
+def profile_proof(run, device, steady_s):
+    """One more proof (`run`) under torch.profiler (`profiled_events`):
+    the CUDA kernels it launched, their device time, that time's share
+    of the steady (stage-timed) wall time, the device time of the field
+    kernels, and each field kernel's launches as the profiler lists them
+    beside the port's counters (LAUNCHES) for the same run. Launches the
+    profiler lost are printed per kernel, and then the busy share is
+    marked a lower bound. A session whose range lists no kernel on the
+    card is tried again, PROFILE_TRIES sessions in all; after that the
+    profile is printed as not measured."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        events, before, counts = profiled_events(run, device)
+        kernels = [evt for evt in events if "memcpy" not in evt[2].lower()
+                   and "memset" not in evt[2].lower()]
+        if kernels:
+            break
+        print(f"  profiler session {attempt} of {PROFILE_TRIES} listed no "
+              f"kernel on the card in the profiled range ({len(before)} "
+              f"device events before it)", flush=True)
+    else:
+        print("  profiled proof: not measured (the profiler listed no "
+              "kernel on the card)", flush=True)
+        return
+    primer = sum(bool(FIELD_KERNEL.match(name)) for _, _, name in before)
+    device_us, field_us, seen = 0.0, {}, {}
+    for _, us, name in kernels:
         device_us += us
         m = FIELD_KERNEL.match(name)
         if m:
             key = kernel_key(m)
             field_us[key] = field_us.get(key, 0.0) + us
             seen[key] = seen.get(key, 0) + 1
-    check(launches > 0, "the profiler saw no kernel on the card")
     lost = {k: v - seen.get(k, 0) for k, v in counts.items()
             if v != seen.get(k, 0)}
     busy = device_us / 1e6 / steady_s
-    print(f"  profiled proof: {launches} CUDA kernel launches, "
+    print(f"  profiled proof: {len(kernels)} CUDA kernel launches, "
           f"{device_us / 1e6:.5f} s of kernel time, device busy {busy:.2%}"
           f"{' (a lower bound: launches lost)' if lost else ''} of the "
           f"steady {steady_s:.5f} s; field kernels (ms): "
@@ -2051,8 +2133,9 @@ def profile_proof(run, device, steady_s):
         f"{k} {seen.get(k, 0)}/{v}" for k, v in counts.items() if v)
         + (f"; LOST by the profiler: {lost}" if lost else
            "; none lost (the profile is whole)")
-        + f"; primer: {primer} of {PROFILE_PRIMER} listed", flush=True)
-    return {"lost": lost, "primer_listed": primer, "busy": busy}
+        + f"; primer: {primer} of {PROFILE_PRIMER} listed"
+        + (f"; session {attempt} of {PROFILE_TRIES}" if attempt > 1 else ""),
+        flush=True)
 
 
 def phase_launches(rows, launches):
@@ -2071,7 +2154,8 @@ def phase_launches(rows, launches):
         for name in names:
             check(launches[path][name] > 0,
                   f"kernel {name} never ran on the {path} path")
-    for chunk, one in ((BATCH, MIMC), (AIR_BATCH, FIB_BIG)):
+    for chunk, one in ((BATCH, MIMC), (AIR_BATCH, FIB_BIG),
+                       (BATCH_DP, MIMC)):
         for name, count in launches[one].items():
             check(launches[chunk][name] == count,
                   f"{launches[chunk][name]} {name} launches per {chunk}, "
@@ -2079,7 +2163,7 @@ def phase_launches(rows, launches):
         print(f"  {chunk}: every kernel's launches equal one {one} "
               f"proof's", flush=True)
     for path in (MIMC4, SHARDED.format(BIG_STEPS), MIMC4_SHARDED, MIMC_DEV,
-                 MIMC4_DEV, TRACE):
+                 MIMC4_DEV, TRACE, BATCH_DP):
         extra = [k for k, v in launches[path].items()
                  if v and k not in PATH_KERNELS[path]]
         check(not extra, f"the {path} path launched {extra}")
@@ -2147,7 +2231,13 @@ def main() -> int:
 
     announce(f"phase 6: batch proving ({BATCH_CLAIMS} x {BIG_STEPS} steps, "
              f"chunk {BATCH_CHUNK}, verified)")
-    chunk_steady_s, launches[BATCH] = phase_batch(device, small_oracle)
+    chunk_steady_s, launches[BATCH], batch_proofs = phase_batch(
+        device, small_oracle)
+
+    # Before phase 7: a profiler session slows every later launch.
+    announce(f"phase 12: config 5 over {DP_RANKS} ranks ({DP_CLAIMS} x "
+             f"{BIG_STEPS} steps, chunk {DP_CHUNK}, verified)")
+    phase_batch_ranks(batch_proofs, launches)
 
     announce(f"phase 10: AIR proofs over a claim axis ({AIR_CHUNK} x "
              f"fib-square {BIG_STEPS} steps in one chunk)")

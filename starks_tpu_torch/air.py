@@ -362,11 +362,13 @@ def prove_air(air: AIR, inputs, steps: int,
 
     The counterpart of both `starks_tpu.air.prove_air` and
     `prove_air_fused`, which emit identical bytes; this proof equals
-    them byte for byte. `device` None means "cuda", and then a CUDA
-    device must be present: the prover never falls back to the CPU on
-    its own. `device="cpu"` runs the plain PyTorch versions of the
-    kernels. Pass a dict as `timings` to receive per-stage seconds, with
-    the stage names of `mk_mimc_proof`."""
+    them byte for byte. JAX `prove_air` takes no config, so a proof
+    under a config other than REFERENCE has no reference: it is checked
+    only by the port's own verifier (`verify_air`). `device` None means
+    "cuda", and then a CUDA device must be present: the prover never
+    falls back to the CPU on its own. `device="cpu"` runs the plain
+    PyTorch versions of the kernels. Pass a dict as `timings` to receive
+    per-stage seconds, with the stage names of `mk_mimc_proof`."""
     return prove_air_batch_fused(air, [inputs], steps, config, chunk=1,
                                  device=device, timings=timings)[0]
 

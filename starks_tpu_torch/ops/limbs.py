@@ -1,8 +1,11 @@
 """The STARK field as PyTorch tensors, and the plain field arithmetic.
 
-Counterpart of `starks_tpu/ops/limbs.py` plus the lane functions of
+Counterpart of `starks_tpu/ops/limbs.py` (add, sub, neg, mul, sqr,
+cube, pow_const, powers_series, eq_zero) plus the lane functions of
 `starks_tpu/ops/plimbs.py` (`_add_lanes`, `_sub_lanes`, `_mul_lanes`,
-`_cube_lanes`).
+`_cube_lanes`). No proof path calls neg, sqr, pow_const,
+powers_series or eq_zero: like their JAX counterparts, they are plain
+helpers with no kernel.
 
 Storage: a field element is a `torch.int32` tensor of shape [..., 8]
 holding the 8 little-endian 32-bit words of its canonical value (bits
@@ -176,3 +179,47 @@ def cube(a: torch.Tensor) -> torch.Tensor:
 def cond_sub_p(a: torch.Tensor) -> torch.Tensor:
     """Canonicalize a value in [0, 2p) (e.g. a 256-bit digest)."""
     return from_limbs16(_cond_sub_p(to_limbs16(a)))
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    """(-a) mod p."""
+    return sub(torch.zeros_like(a), a)
+
+
+def sqr(a: torch.Tensor) -> torch.Tensor:
+    return mul(a, a)
+
+
+def _one_like(x: torch.Tensor) -> torch.Tensor:
+    """The field's 1 in x's shape."""
+    out = torch.zeros_like(x)
+    out[..., 0] = 1
+    return out
+
+
+def pow_const(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e for a Python-int exponent e >= 0 (square and multiply, from
+    the top bit down)."""
+    acc = _one_like(x)
+    for bit in bin(e)[2:] if e else "":
+        acc = sqr(acc)
+        if bit == "1":
+            acc = mul(acc, x)
+    return acc
+
+
+def powers_series(g: torch.Tensor, n: int) -> torch.Tensor:
+    """[n, 8]: g^0 .. g^(n-1) for one element g ([8] or [1, 8]), by
+    doubling (each step multiplies the powers so far by the next power
+    of g)."""
+    g_pow = g.reshape(1, NUM_WORDS)
+    arr = _one_like(g_pow)
+    while arr.shape[0] < n:
+        arr = torch.cat([arr, mul(arr, g_pow)])
+        g_pow = sqr(g_pow)
+    return arr[:n]
+
+
+def eq_zero(x: torch.Tensor) -> torch.Tensor:
+    """Boolean [...]: True where x is 0."""
+    return torch.all(x == 0, dim=-1)

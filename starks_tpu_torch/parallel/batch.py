@@ -3,7 +3,9 @@
 
 Proofs are independent, so data parallelism is at the process level:
 under `torch.distributed`, each process proves the contiguous slice of
-the batch its rank owns (`local_slice`), and only proof bytes leave it.
+the batch its rank owns (`local_slice`), and only proof bytes leave it
+(`gather_proofs`: the wire format of serialize.py, over a gloo group,
+to one rank that checks the slices cover the batch).
 With a mesh (parallel/mesh.py), the slices go to the mesh's batch rows,
 and each row proves its claims one by one, each sharded over the row's
 ranks, as `starks_tpu/parallel/batch.py` does.
@@ -14,10 +16,13 @@ from a proof store, self-verification and per-claim retries.
 """
 
 import logging
+import time
 
 import torch
+import torch.distributed as dist
 
 from .. import prover
+from .. import serialize as ser
 from .. import verifier
 from ..models import mimc as mimc_model
 from ..utils.artifacts import claim_key
@@ -42,7 +47,7 @@ def local_slice(n_items: int, process_index: int = None,
 
 def prove_batch(inputs, steps: int, round_constants, mesh=None,
                 store=None, max_retries: int = 1, verify: bool = False,
-                chunk: int = None, device=None):
+                chunk: int = None, device=None, timings=None):
     """Prove a batch of MiMC claims; returns the proof objects of this
     process's slice of the batch (all of it in a single process).
 
@@ -54,7 +59,10 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
     raised; the failure is logged, never swallowed) or rejected is
     proved alone through `prover.mk_mimc_proof_with_trace`, with up to
     `max_retries` more attempts (proofs are deterministic, so recovery
-    is a re-run). `device` as in `prover.mk_mimc_proof`.
+    is a re-run). `device` as in `prover.mk_mimc_proof`. Pass a dict as
+    `timings` to receive the seconds in the bulk prover ("bulk") and in
+    claims proved alone, retries included ("alone"), and the number of
+    claims proved alone ("alone_claims").
 
     With `mesh` (a parallel.mesh.Mesh), the batch row of the mesh owns a
     contiguous slice of the claims (`local_slice` over the batch axis),
@@ -70,6 +78,9 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
     else:
         owned = local_slice(len(inputs))
     local_inputs = list(inputs)[owned]
+    if timings is None:
+        timings = {}
+    timings.update(bulk=0.0, alone=0.0, alone_claims=0)
     if not local_inputs:
         return []
 
@@ -107,6 +118,7 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
     # chunk at a time inside the bulk prover (the whole batch's traces
     # would be gigabytes of host memory at 2^20 steps).
     if mesh is None and len(pending) > 1:
+        t0 = time.perf_counter()
         try:
             got = prover.mk_mimc_proof_batch_fused(
                 [local_inputs[i] for i in pending], steps, round_constants,
@@ -115,6 +127,7 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
             log.exception("bulk batch prover failed for %d claims; "
                           "proving them one by one", len(pending))
             got = [None] * len(pending)
+        timings["bulk"] += time.perf_counter() - t0
         for i, cand in zip(pending, got):
             if cand is not None and check_one(local_inputs[i], cand):
                 keep(i, cand)
@@ -126,7 +139,9 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
         inp = local_inputs[i]
         trace = mimc_model.trace_limbs(inp, steps, round_constants)
         proof, last_err = None, None
+        timings["alone_claims"] += 1
         for _ in range(max_retries + 1):
+            t0 = time.perf_counter()
             try:
                 cand = prover.mk_mimc_proof_with_trace(
                     inp, steps, round_constants, trace, mesh=mesh,
@@ -139,6 +154,8 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
                     raise
                 last_err = e
                 continue
+            finally:
+                timings["alone"] += time.perf_counter() - t0
             if check_one(inp, cand):
                 proof = cand
                 break
@@ -150,6 +167,70 @@ def prove_batch(inputs, steps: int, round_constants, mesh=None,
         keep(i, proof)
 
     return [results[i] for i in range(len(local_inputs))]
+
+
+def host_group():
+    """A group of every rank for host objects: the default group when its
+    backend is gloo, else a new gloo group over the same ranks (NCCL
+    moves only device tensors). Every rank must call it, in the same
+    order as its other collectives."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    return dist.new_group(backend="gloo")
+
+
+def check_slices(slices, n_items: int):
+    """Raise ValueError unless the ranks' slices cover claims
+    [0, n_items) once each: `slices[r]` is the (start, stop) rank r
+    proved (start >= stop for a rank with no claim, as `local_slice`
+    gives when there are more ranks than claims). The message names the
+    ranks at fault."""
+    owner = [None] * n_items
+    for rank, (lo, hi) in enumerate(slices):
+        if lo >= hi:
+            continue
+        if lo < 0 or hi > n_items:
+            raise ValueError(f"rank {rank} proved claims [{lo}, {hi}), "
+                             f"outside the batch [0, {n_items})")
+        for i in range(lo, hi):
+            if owner[i] is not None:
+                raise ValueError(f"ranks {owner[i]} and {rank} both proved "
+                                 f"claim {i} (slices by rank: {slices})")
+            owner[i] = rank
+    missing = [i for i, r in enumerate(owner) if r is None]
+    if missing:
+        raise ValueError(f"no rank proved claims {missing} (slices by "
+                         f"rank: {slices})")
+
+
+def gather_proofs(local_proofs, n_items: int, extra=None, group=None):
+    """This rank's proofs of its `local_slice(n_items)`, gathered on rank
+    0: each rank sends its slice's bounds, its proofs as wire bytes
+    (`serialize.serialize`) and `extra` (any object that pickles: this
+    rank's figures, say) in one `gather_object` over `group` (default
+    `host_group()`). On rank 0 the slices must cover the batch once each
+    (`check_slices`), and it gets (every proof deserialized, in claim
+    order; every rank's `extra`, in rank order); every other rank gets
+    None. Every rank of the group must call it."""
+    group = host_group() if group is None else group
+    owned = local_slice(n_items)
+    if len(local_proofs) != max(0, owned.stop - owned.start):
+        raise ValueError(f"rank {dist.get_rank()} has {len(local_proofs)} "
+                         f"proofs for its slice [{owned.start}, "
+                         f"{owned.stop}) of {n_items} claims")
+    sent = (owned.start, owned.stop, [ser.serialize(p) for p in local_proofs],
+            extra)
+    got = [None] * dist.get_world_size(group) if dist.get_rank() == 0 \
+        else None
+    dist.gather_object(sent, got, dst=0, group=group)
+    if got is None:
+        return None
+    check_slices([(lo, hi) for lo, hi, _, _ in got], n_items)
+    by_claim = {}
+    for lo, _, blobs, _ in got:
+        by_claim.update(enumerate(blobs, start=lo))
+    return ([ser.deserialize(by_claim[i]) for i in range(n_items)],
+            [x for _, _, _, x in got])
 
 
 def verify_batch(inputs, steps: int, round_constants, outputs, proofs):

@@ -13,6 +13,7 @@ import torch
 
 from oracle import stark as ostark
 from starks_tpu import verifier as jverifier
+from starks_tpu.parallel import batch as jbatch
 import starks_tpu_torch as stt
 from starks_tpu_torch import prover
 from starks_tpu_torch.models import mimc
@@ -112,6 +113,35 @@ def test_local_slice():
     assert pbatch.local_slice(10, 0, 3) == slice(0, 4)
     assert pbatch.local_slice(10, 2, 3) == slice(8, 10)
     assert [0, 1][pbatch.local_slice(2, 3, 4)] == []
+
+
+@pytest.mark.parametrize("n,index,count", [
+    (n, i, c) for n in (0, 1, 5, 64) for c in (1, 2, 3, 4)
+    for i in range(c)])
+def test_local_slice_equals_jax(n, index, count):
+    """The port's contiguous slice of a batch for rank `index` of `count`
+    equals the JAX package's for process `index` of `count`."""
+    assert pbatch.local_slice(n, index, count) == jbatch.local_slice(
+        n, index, count)
+
+
+@pytest.mark.parametrize("slices,n,fault", [
+    ([(0, 2), (3, 5)], 5, r"no rank proved claims \[2\]"),
+    ([(0, 3), (2, 5)], 5, "ranks 0 and 1 both proved claim 2"),
+    ([(0, 3), (3, 6)], 5, r"rank 1 proved claims \[3, 6\), outside"),
+    ([(0, 2), (2, 4), (4, 5), (6, 5)], 5, None),
+    ([(0, 0)], 0, None),
+])
+def test_check_slices_rejects_a_gap_or_an_overlap(slices, n, fault):
+    """What `gather_proofs` checks on the gathering rank: the ranks'
+    slices cover the batch once each (an empty slice, start >= stop, is
+    a rank with no claim); a gap or an overlap raises and names the
+    ranks."""
+    if fault is None:
+        pbatch.check_slices(slices, n)
+    else:
+        with pytest.raises(ValueError, match=fault):
+            pbatch.check_slices(slices, n)
 
 
 def test_prove_batch_verifies_and_verify_batch():

@@ -7,6 +7,11 @@ tests/test_torch_parallel_ranks.py; each mesh is started once).
   `oracle.stark.mk_mimc_proof` and the single-device port byte for
   byte, on every rank; an inconsistent trace is proved verbatim;
   `prove_batch(mesh=)` equals serial proofs.
+- The data-parallel batch (`prove_batch(mesh=None)` under 2 and 4
+  ranks): each rank proves its `local_slice`, `gather_proofs` gives rank
+  0 the single-process proofs in claim order, and a store filled by 2
+  ranks is loaded whole by 4; `launch batch` in both forms (new ranks,
+  and torchrun).
 - The four-step NTT equals JAX `ntt4step.fourstep_ntt_shmap` at 2^10
   over 4 shards (run in a subprocess with four virtual CPU devices,
   started with this module), and the single-device DIF transform plus
@@ -22,8 +27,10 @@ tests/test_torch_parallel_ranks.py; each mesh is started once).
 import atexit
 import functools
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -37,6 +44,7 @@ import starks_tpu_torch as stt
 from starks_tpu_torch.ops import blake2s as b2
 from starks_tpu_torch.ops import fused, merkle, plimbs
 from starks_tpu_torch.ops import limbs as fl
+from starks_tpu_torch.parallel import batch as pbatch
 from starks_tpu_torch.parallel import launch, ntt4step
 import test_torch_parallel_ranks as ranks
 
@@ -46,9 +54,9 @@ JAX_N = 2 ** 10
 JAX_TIMEOUT_S = 900
 # name -> (ranks, batch rows, what the ranks run)
 MESHES = {
-    "1x2": (2, 1, ("proof", "tree", "db_map", "fri")),
+    "1x2": (2, 1, ("proof", "tree", "db_map", "fri", "batch_dp")),
     "1x4": (4, 1, ("proof", "with_trace", "fourstep", "tree", "db_map",
-                   "fri", "low_degree")),
+                   "fri", "low_degree", "batch_dp", "batch_resume")),
     "2x2": (4, 2, ("proof", "prove_batch")),
     "1x8": (8, 1, ("fri", "low_degree")),
 }
@@ -104,11 +112,26 @@ def jax_fourstep_run(tmp_path_factory):
 
 
 @functools.lru_cache(maxsize=None)
+def batch_store_root() -> str:
+    """The proof store that the 1x2 launch's data-parallel batch fills
+    and the 1x4 launch resumes from (removed at exit)."""
+    root = tempfile.mkdtemp(prefix="starks_batch_store_")
+    atexit.register(shutil.rmtree, root, True)
+    return root
+
+
+@functools.lru_cache(maxsize=None)
 def mesh_results(name: str):
     """Every rank's results on mesh `name`, in rank order."""
     n, n_batch, parts = MESHES[name]
-    return launch.run(ranks.mesh_checks, n, n_batch, parts, device="cpu",
-                      timeout=600)
+    fill = resume = None
+    if "batch_resume" in parts:
+        mesh_results("1x2")            # fills the store this one resumes
+        resume = batch_store_root()
+    elif "batch_dp" in parts:
+        fill = batch_store_root()
+    return launch.run(ranks.mesh_checks, n, n_batch, parts, fill, resume,
+                      device="cpu", timeout=600)
 
 
 # -- sharded proofs ------------------------------------------------------
@@ -189,6 +212,100 @@ def test_prove_batch_on_mesh_retries_a_rejected_proof_on_every_rank():
     got = launch.run(ranks.batch_fault, 2, "reject", device="cpu",
                      timeout=300)
     assert got == [want, want]
+
+
+# -- the data-parallel batch --------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _dp_serial():
+    return [stt.mk_mimc_proof(x, ranks.BATCH_STEPS, ranks.BATCH_CONSTS,
+                              device="cpu") for x in ranks.DP_INPS]
+
+
+@pytest.mark.parametrize("name", ["1x2", "1x4"])
+def test_batch_dp_ranks_prove_their_slices_and_gather(name):
+    """`prove_batch(mesh=None)` of 6 claims over 2 and 4 ranks: each rank
+    proves exactly its `local_slice(6, rank, world)` through the bulk
+    prover (rank 3 of 4 none), and `gather_proofs` gives rank 0 the
+    single-process proofs in claim order (claim 0 the oracle's) with
+    every rank's `extra` in rank order, and the other ranks None."""
+    serial = _dp_serial()
+    assert serial[0] == ostark.mk_mimc_proof(
+        ranks.DP_INPS[0], ranks.BATCH_STEPS, ranks.BATCH_CONSTS)
+    results = mesh_results(name)
+    n = len(ranks.DP_INPS)
+    for rank, r in enumerate(results):
+        got = r["batch_dp"]
+        owned = pbatch.local_slice(n, rank, len(results))
+        assert got["slice"] == owned
+        assert got["proved"] == ranks.DP_INPS[owned]
+        assert got["local"] == serial[owned]
+        starts = [pbatch.local_slice(n, i, len(results)).start
+                  for i in range(len(results))]
+        assert got["gathered"] == ((serial, starts) if rank == 0 else None)
+    if name == "1x4":
+        assert results[3]["batch_dp"]["proved"] == []
+
+
+def test_batch_resume_across_world_sizes():
+    """A store filled by the 2-rank batch is loaded whole by 4 ranks, with
+    both provers raising if called; the gather gives rank 0 every proof."""
+    serial = _dp_serial()
+    n = len(ranks.DP_INPS)
+    results = mesh_results("1x4")
+    for rank, r in enumerate(results):
+        got = r["batch_resume"]
+        assert got["local"] == serial[pbatch.local_slice(n, rank, 4)]
+        assert got["gathered"] == ((serial, [None] * 4) if rank == 0
+                                   else None)
+
+
+def test_launch_batch_two_new_ranks(capsys):
+    """`launch batch` on the CPU: the one-device baseline, then two new
+    ranks; every gathered proof equals the baseline's and the oracle's
+    for claim 0 (32 constants: fewer than the 64 steps)."""
+    out = launch.batch(64, 3, 2, "cpu")
+    consts = launch.batch_consts(64)
+    assert len(consts) == 32
+    assert out["proofs"][0] == ostark.mk_mimc_proof(0, 64, consts)
+    assert [r["slice"] for r in out["ranks"]] == [(0, 2), (2, 3)]
+    assert [r["n"] for r in out["ranks"]] == [2, 1]
+    text = capsys.readouterr().out
+    assert "every gathered proof equals the one-device proof" in text
+    assert "efficiency against the one-device baseline" in text
+
+
+def test_launch_batch_under_torchrun():
+    """The torchrun form of `launch batch`, two CPU ranks on this host:
+    rank 0 checks claims 0 and 4 against its own proofs of them."""
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "starks_tpu_torch.parallel.launch",
+         "batch", "64", "5", "cpu"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "claims 0 and 4, gathered, equal rank 0's proofs of them alone " \
+        "byte for byte" in res.stdout
+    assert res.stdout.count("    launches: ") == 2
+
+
+def test_join_from_env_raises_without_torchrun_or_a_card(monkeypatch):
+    """No group is joined quietly: without torchrun's variables, or with
+    device="cuda" and no card, `join_from_env` raises, and so does
+    `launch batch` on the card."""
+    for var in launch.TORCHRUN_VARS:
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="RANK, WORLD_SIZE"):
+        launch.join_from_env("cpu")
+    for var, value in zip(launch.TORCHRUN_VARS,
+                          ("0", "1", "0", "localhost", "29500")):
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.join_from_env("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.batch(64, 2, 2, "cuda")
+    assert not torch.distributed.is_initialized()
 
 
 # -- the four-step NTT -----------------------------------------------------

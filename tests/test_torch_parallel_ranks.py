@@ -11,8 +11,10 @@ import starks_tpu_torch as stt
 from starks_tpu_torch.models import mimc
 from starks_tpu_torch.ops import blake2s as b2
 from starks_tpu_torch.ops import fused, merkle, plimbs
+from starks_tpu_torch.parallel import batch as pbatch
 from starks_tpu_torch.parallel import mesh as pmesh
 from starks_tpu_torch.parallel import ntt4step
+from starks_tpu_torch.utils.artifacts import ProofStore
 from starks_tpu_torch.utils import hostfield as hf
 from starks_tpu_torch.utils.conversions import int_to_tensor
 
@@ -20,6 +22,7 @@ M = 2 ** 256 - 351 * 2 ** 32 + 1
 PROOF_STEPS, PROOF_CONSTS = 128, [(i ** 7) ^ 42 for i in range(32)]
 BATCH_STEPS, BATCH_CONSTS = 64, [(i ** 7) ^ 42 for i in range(16)]
 BATCH_INPS = [3, 4, 5]
+DP_INPS = [3, 4, 5, 6, 7, 8]          # the data-parallel batch (mesh=None)
 NTT_SIZES = (2 ** 10, 2 ** 12)
 TREE_LEAVES = 64
 # (points, maxdeg + 1): over 8 shards the second FRI round of 128
@@ -70,9 +73,13 @@ def _counted(mesh, run):
     return out, dict(mesh.counts)
 
 
-def mesh_checks(rank: int, n_batch: int, parts) -> dict:
+def mesh_checks(rank: int, n_batch: int, parts, fill_root=None,
+                resume_root=None) -> dict:
     """The sharded entry points and helpers named in `parts` on this
-    rank of an [n_batch, ranks / n_batch] CPU mesh."""
+    rank of an [n_batch, ranks / n_batch] CPU mesh, and the data-parallel
+    batch over the same ranks ("batch_dp", into a proof store at
+    `fill_root` when given; "batch_resume", from the store at
+    `resume_root`)."""
     mesh = pmesh.make_mesh(n_batch=n_batch, device="cpu")
     out = {"shard": mesh.shard_index, "batch_row": mesh.batch_index,
            "transport": mesh.transport}
@@ -115,6 +122,10 @@ def mesh_checks(rank: int, n_batch: int, parts) -> dict:
             ia, ext, halo=halo)
     if "fri" in parts:
         out["fri"] = fri_checks(mesh)
+    if "batch_dp" in parts:
+        out["batch_dp"] = batch_dp(fill_root)
+    if "batch_resume" in parts:
+        out["batch_resume"] = batch_resume(resume_root)
     if "low_degree" in parts:
         out["low_degree"] = {}
         for n, maxdeg in LOW_DEGREE:
@@ -148,6 +159,51 @@ def fri_checks(mesh) -> dict:
         out[n] = {"fold": fold, "commit": commit, "counts": counts,
                   "quarter_bytes": sent}
     return out
+
+
+def batch_dp(store_root=None) -> dict:
+    """`prove_batch(mesh=None)` of DP_INPS on this rank's slice, verified,
+    in chunks of 2, then `gather_proofs` to rank 0: the inputs the bulk
+    prover got, this rank's slice and proofs, and what the gather gave."""
+    proved = []
+    real = pbatch.prover.mk_mimc_proof_batch_fused
+
+    def recorded(inps, *args, **kwargs):
+        proved.extend(inps)
+        return real(inps, *args, **kwargs)
+    pbatch.prover.mk_mimc_proof_batch_fused = recorded
+    try:
+        local = stt.prove_batch(
+            DP_INPS, BATCH_STEPS, BATCH_CONSTS, verify=True, chunk=2,
+            device="cpu",
+            store=None if store_root is None else ProofStore(store_root))
+    finally:
+        pbatch.prover.mk_mimc_proof_batch_fused = real
+    owned = pbatch.local_slice(len(DP_INPS))
+    return {"slice": owned, "proved": proved, "local": local,
+            "gathered": pbatch.gather_proofs(local, len(DP_INPS),
+                                             extra=owned.start)}
+
+
+def batch_resume(store_root) -> dict:
+    """`prove_batch(mesh=None)` of DP_INPS from a store that another world
+    size filled, with both provers raising: every claim of this rank's
+    slice must load from the store; then the gather to rank 0."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("re-proved a stored claim")
+    routes = ("mk_mimc_proof_batch_fused", "mk_mimc_proof_with_trace")
+    real = {name: getattr(pbatch.prover, name) for name in routes}
+    for name in routes:
+        setattr(pbatch.prover, name, refuse)
+    try:
+        local = stt.prove_batch(DP_INPS, BATCH_STEPS, BATCH_CONSTS,
+                                store=ProofStore(store_root), verify=True,
+                                chunk=2, device="cpu")
+    finally:
+        for name, fn in real.items():
+            setattr(pbatch.prover, name, fn)
+    return {"local": local,
+            "gathered": pbatch.gather_proofs(local, len(DP_INPS))}
 
 
 def failing(rank: int):
