@@ -45,15 +45,26 @@ Phases (any failure exits non-zero and prints no result):
      dependent step, beside its roofline bound and its chain floor (4
      dependent IMAD.WIDE and 10 dependent IADD3 a step, their latencies
      timed on one thread); `trace_batch_device` of 64 claims at 2^16
-     steps against the native host trace of each claim;
+     steps against the native host trace of each claim; batch inversion
+     (`batch_inv_kernel`, the set-ups' 1/Z tables) against its plain
+     version and hostfield.multi_inv at 1, 3, 257 and 2^16 + 7 elements
+     and at each size a set-up inverts, 2^16, 2^17, 2^19, 2^21 and 2^23
+     (zeros, 1, p - 1 and random elements from the seed), at run
+     lengths 1 and its default, timed at each set-up size for run
+     lengths 1-256 beside the function's bound;
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
      port's verifier, with one flipped byte rejected; per-stage times;
   5. general AIR proofs (benchmark config 3): fib-square at 2^10 steps on
-     the card equal to the CPU path byte for byte; fib-square at 2^13 and
-     2^16 accepted, with a changed boundary value and a flipped leaf byte
-     rejected, the output equal to fib_square_output, per-stage times,
+     the card equal to the CPU path byte for byte; the set-ups of
+     fib-square at 2^13 and 2^16 and of MiMC as an AIR at 2^13, each
+     counted alone and timed: built on the card (x - last, the boundary
+     bases by Horner, 1/Z_r by one batch inverse per bounded register),
+     with no call of fused.powers, hostfield.multi_inv or eval_poly_at,
+     or native.inv_vanishing2; fib-square at 2^13 and 2^16 accepted,
+     with a changed boundary value and a flipped leaf byte rejected, the
+     output equal to fib_square_output, per-stage times,
      launches per proof; the declarative form equal to the closure form
      at 2^13; MiMC written as an AIR at 2^13 accepted with the output of
      mimc_forward (the path of the cube kernel);
@@ -89,17 +100,19 @@ Phases (any failure exits non-zero and prints no result):
      four-step's local batches, the three-pass DIT to 2^23, the D/B
      map at 2^23 and on a shard with its halo, the L map, fold4 at all
      nine rounds and on a shard's quarter slices, the twiddle product),
-     and NTT points/s at 2^20; the set-up of a 2^20 proof (native
-     tables, no Python int per point), a first and a steady proof with
-     stage times, verified, a flipped byte rejected, peak memory and
-     size; then SHARDS ranks (parallel/launch.py), each on cuda:(rank %
+     and NTT points/s at 2^20; the set-up of a 2^20 proof, counted alone
+     and timed: 1/Z2 on the card (sub 2, mul 1, batch_inv 1; no host
+     table function called), equal to native.inv_vanishing2's; a first
+     and a steady proof with stage times, verified, a flipped byte
+     rejected, peak memory and size; then SHARDS ranks (parallel/launch.py), each on cuda:(rank %
      device_count), prove 2^16 and 2^20 steps sharded: every rank's
-     proof equals the one-card proof byte for byte; per rank the stage
-     times, each collective's count, bytes sent to other ranks and
-     seconds, the transport, and the launches (phase 8 counts both
-     paths).
+     proof equals the one-card proof byte for byte, and its set-up
+     builds its rows of 1/Z2 on the card; per rank the stage times, each
+     collective's count, bytes sent to other ranks and seconds, the
+     transport, and the launches (phase 8 counts both paths).
   10. general AIR proofs over a claim axis (`prove_air_batch_fused`), run
-     after phase 6: 16 fib-square claims at 2^16 steps in one chunk,
+     after phase 6, on phase 5's cached 2^16 set-up (phase 5 counts and
+     times it); 16 fib-square claims at 2^16 steps in one chunk,
      every claim verified, claims 0 and 15 equal to serial proofs, a
      changed boundary rejected, stage times, peak memory, proofs/s at
      chunks of 16, 4 and 1 (4 claims), the host trace per claim; MiMC as
@@ -122,11 +135,13 @@ Phases (any failure exits non-zero and prints no result):
      scaling) and each rank's launches, counted alone: one chunk's, as
      one MiMC 2^16 proof's.
 Phase 8 also requires the config 4 paths, the all-device proofs, the
-device trace and config 5 over ranks to launch only their kernels.
+device trace, config 5 over ranks and the set-ups to launch only their
+kernels; the set-ups are the paths of batch_inv.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import copy
 import functools
 import json
@@ -170,6 +185,16 @@ GLOBAL_CHECK_STEPS = 2 ** 12  # ... each read twice (native trace)
 TRACE_SHAPE_CLAIMS = (1, 3, 5, TRACE_CLAIMS)
 TRACE_SHAPE_CONSTS = (1, 1536, 1537, GLOBAL_TRACE_CONSTS)
 CHAIN_LINKS = 2 ** 20         # dependent instructions per latency chain
+# Batch inversion: timed at every size a set-up inverts (2^16 the
+# 2^13-step set-ups' tables, 2^17 a rank's 1/Z2 in the sharded 2^16-
+# step proof, 2^19 the 2^16-step set-ups' tables, 2^21 a rank's 1/Z2 in
+# config 4's sharded proof, 2^23 config 4's 1/Z2) for each run length of INV_RUNS; checked at those and at short
+# sizes, against hostfield.multi_inv on Python ints up to INV_INTS.
+INV_TIMED = (SMALL_STEPS * EXT, 2 ** 17, BIG_STEPS * EXT,
+             CONFIG4_STEPS * EXT // SHARDS, CONFIG4_STEPS * EXT)
+INV_SIZES = (1, 3, 257, BIG_STEPS + 7) + INV_TIMED
+INV_INTS = BIG_STEPS * EXT
+INV_RUNS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
 # 32-bit integer multiply-adds at 64 per clock per SM (CUDA C++
@@ -208,6 +233,9 @@ REPLACES = {
     "cube": "starks_tpu/ops/plimbs.py:289",
     # a lax.scan, no Pallas kernel
     "mimc_trace": "starks_tpu/models/mimc.py:73",
+    # XLA scans, no Pallas kernel: fused.batch_inv_scan, which the JAX
+    # set-ups run (limbs.batch_inv, :213, is the same function)
+    "batch_inv": "starks_tpu/ops/fused.py:706",
 }
 # The main paths, each counted alone, and the kernels each must launch.
 # A kernel's row reports the count of the first path here that runs it:
@@ -228,6 +256,10 @@ MIMC_DEV = f"MiMC {BIG_STEPS}, device trace"
 MIMC4_DEV = f"MiMC {CONFIG4_STEPS}, device trace"
 SHARDED = f"MiMC {{}} over {SHARDS} shards, per rank"
 MIMC4_SHARDED = SHARDED.format(CONFIG4_STEPS)
+# The set-ups (each counted alone, built before its first proof): the
+# domain tables built on the card, one batch inverse per 1/Z table.
+SETUP = " set-up"
+AIR_SETUP_KERNELS = ["sub", "mul", "add", "batch_inv"]
 # The sharded LDE is two four-step NTTs: DIF passes over a claim axis
 # and the twiddle product (mul); no DIT pass.
 SHARD_KERNELS = ["dif_pass", "mul", "db_map", "l_map", "fold4"]
@@ -245,6 +277,10 @@ PATH_KERNELS = {
     MIMC4_DEV: NTT_FRI + ["db_map", "l_map", "mimc_trace"],
     TRACE: ["mimc_trace"],
     BATCH_DP: NTT_FRI + ["db_map", "l_map"],
+    FIB_BIG + SETUP: AIR_SETUP_KERNELS,
+    FIB + SETUP: AIR_SETUP_KERNELS,
+    MIMC_AIR + SETUP: AIR_SETUP_KERNELS,
+    MIMC4 + SETUP: ["sub", "mul", "batch_inv"],
 }
 
 
@@ -774,6 +810,144 @@ def phase_elementwise_claims(rows, device):
     torch.cuda.empty_cache()       # the plain versions' limb products
 
 
+def inv_ops(x) -> int:
+    """Least operations of the function batch_inv computes over x, by
+    Montgomery's trick: a forward product and two backward products per
+    nonzero element (a zero skips them) and one Fermat inverse (255
+    squarings, 248 modmuls) in all, whatever the kernel's run length."""
+    from starks_tpu_torch.ops import limbs as fl
+    nonzero = x.shape[0] - int(fl.eq_zero(x).sum())
+    return 3 * nonzero * OPS_MUL + 255 * OPS_SQR + 248 * OPS_MUL
+
+
+def phase_batch_inv(rows, device):
+    """Phase 2, batch inversion (`batch_inv_kernel`, which the set-ups
+    run): at each of INV_SIZES, on seeded random elements with zeros
+    scattered (one in 50) and the structured values up front (0, 1,
+    p - 1, p - 2, ...), the kernel at run length 1 and its default
+    (`plimbs.batch_inv_run`) equals its plain version exactly, which
+    equals hostfield.multi_inv on Python ints up to INV_INTS elements;
+    then its device time at each size of INV_TIMED for each run length
+    of INV_RUNS, beside the function's bound (one for all run lengths;
+    inputs warm in L2, as the set-up's product leaves them), the fastest
+    run beside the default, and the row of the `kernels` line (2^19 at
+    the default run, with the 2^23 time and the sweep beside it)."""
+    import torch
+    from starks_tpu_torch.ops import plimbs
+    from starks_tpu_torch.utils import hostfield
+    from starks_tpu_torch.utils.conversions import tensor_to_ints
+    sms, mhz = card_clocks(device)
+    ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    gen = torch.Generator().manual_seed(SEED + 20)
+    edge = edge_elems(device)
+    arrays, err = {}, 0
+    for n in INV_SIZES:
+        x = with_edges(rand_elems(n, gen, device), edge)
+        x[torch.randperm(n, generator=gen)[:n // 50].to(device)] = 0
+        arrays[n] = x
+        want = plimbs.batch_inv_plain(x)
+        for run in (1, plimbs.batch_inv_run(n)):
+            got = plimbs.batch_inv(x, run)
+            err = max(err, int((got.to(torch.int64)
+                                - want.to(torch.int64)).abs().max()))
+            check(torch.equal(got, want),
+                  f"batch_inv at {n} elements, run {run}, disagrees with "
+                  f"its plain version")
+        if n <= INV_INTS:
+            check(tensor_to_ints(want)
+                  == hostfield.multi_inv(tensor_to_ints(x)),
+                  f"batch_inv_plain at {n} elements disagrees with "
+                  f"hostfield.multi_inv")
+    print(f"  batch_inv   equal to plain at {len(INV_SIZES)} sizes "
+          f"({', '.join(map(str, INV_SIZES))}) at run 1 and the default "
+          f"run (max_abs_err {err}), plain equal to "
+          f"hostfield.multi_inv up to {INV_INTS}", flush=True)
+
+    def bound(x):
+        bytes_ms = 2 * ELEM * x.shape[0] / HBM_BYTES_PER_S * 1e3
+        ops_ms = inv_ops(x) / ops_per_s * 1e3
+        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                       else "operations")
+
+    timed, sweep = {}, {}
+    for n in INV_TIMED:
+        x = arrays[n]
+        b, by = bound(x)
+        default = plimbs.batch_inv_run(n)
+        for run in INV_RUNS:
+            dev, per_call = kernel_times(lambda: plimbs.batch_inv(x, run),
+                                         device, reps=10)
+            timed[n, run] = {"ms": dev, "call_ms": per_call, "bound_ms": b,
+                             "bound_by": by}
+        ms = {run: timed[n, run]["ms"] for run in INV_RUNS}
+        fastest = min(ms, key=ms.get)
+        sweep[n] = {"default_run": default, "fastest_run": fastest,
+                    "bound_ms": b, "bound_by": by, "ms_by_run": ms}
+        print(f"    {n} elements, bound {b:.6f} ms ({by}); device ms by "
+              f"run: " + ", ".join(f"{r} {t:.6f}" for r, t in ms.items())
+              + f"; fastest run {fastest}, default run {default}"
+              + (f" ({timed[n, default]['ms']:.6f} ms)" if default in ms
+                 else " (not swept)"), flush=True)
+    n = BIG_STEPS * EXT
+    run, x = plimbs.batch_inv_run(n), arrays[n]
+    big = dict(timed[CONFIG4_STEPS * EXT,
+                     plimbs.batch_inv_run(CONFIG4_STEPS * EXT)])
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    plimbs.batch_inv_plain(arrays[CONFIG4_STEPS * EXT])
+    torch.cuda.synchronize(device)
+    big["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    row = {"name": "batch_inv", "route": "cuda", "source": SRC,
+           "replaces": REPLACES["batch_inv"], "launches": 0,
+           "max_abs_err": err, "ms": timed[n, run]["ms"],
+           "call_ms": timed[n, run]["call_ms"],
+           "plain_ms": call_ms(lambda: plimbs.batch_inv_plain(x), device, 3),
+           "bound_ms": timed[n, run]["bound_ms"],
+           "bound_by": timed[n, run]["bound_by"], "library_ms": None,
+           "l2": "warm", "run": run, "elements": n,
+           f"at {CONFIG4_STEPS * EXT}": big, "sweep": sweep}
+    big["run"] = plimbs.batch_inv_run(CONFIG4_STEPS * EXT)
+    rows["batch_inv"] = row
+    print(f"  batch_inv   {n} elements, run {run}: device {row['ms']:.6f} ms,"
+          f" plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.6f} ms"
+          f" ({row['bound_ms'] / row['ms']:.1%});"
+          f" {CONFIG4_STEPS * EXT} elements, run {big['run']}: device "
+          f"{big['ms']:.6f} ms, "
+          f"plain {big['plain_ms']:.3f} ms (one call), bound "
+          f"{big['bound_ms']:.6f} ms ({big['bound_ms'] / big['ms']:.1%})",
+          flush=True)
+
+
+def setup_timed(build, device):
+    """`build()` (a set-up), counted alone and timed to the card's end,
+    with spies on the host functions that would build a domain table one
+    point at a time, or on the host where the JAX package builds it on
+    the device: none may be called. Returns (set-up, seconds, launch
+    counts)."""
+    import torch
+    from starks_tpu_torch.ops import fused
+    from starks_tpu_torch.utils import hostfield, native
+    spied = ((fused, "powers"), (hostfield, "multi_inv"),
+             (hostfield, "eval_poly_at"), (native, "inv_vanishing2"))
+    with contextlib.ExitStack() as stack:
+        spies = [stack.enter_context(Spy(m, name)) for m, name in spied]
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        su, launches = counted(build)
+        torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+    called = {s.name: s.calls for s in spies if s.calls}
+    check(not called, f"a set-up built a table on the host: {called}")
+    return su, seconds, launches
+
+
+def print_setup(what, seconds, launches):
+    print(f"  {what} set-up: {seconds:.4f} s, on the card (fused.powers, "
+          f"hostfield.multi_inv and eval_poly_at, native.inv_vanishing2 not "
+          f"called); launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items() if v), flush=True)
+
+
 def trace_design(entry):
     """The C entry `entry` (mimc_trace's arguments) as a function of (x0,
     consts, steps) on the current stream: a design timed beside the
@@ -1249,9 +1423,14 @@ def phase_big_proof(steps, device):
     return proof, steady["total"], launches
 
 
-def print_stages(first, steady):
-    print(f"  first call (with setup): total {first['total']:.4f} s",
-          flush=True)
+def print_stages(first, steady, setup_s=None):
+    if setup_s is None:
+        print(f"  first call (with setup): total {first['total']:.4f} s",
+              flush=True)
+    else:
+        print(f"  set-up {setup_s:.4f} s, then first call "
+              f"{first['total']:.4f} s: {setup_s + first['total']:.4f} s "
+              f"with set-up", flush=True)
     for stage, sec in steady.items():
         print(f"    {stage:<32s} {sec * 1e3:10.3f} ms", flush=True)
 
@@ -1270,9 +1449,20 @@ def phase_air(device):
     Returns the steady fib-square wall times by steps, the launch counts
     of each counted path and the BIG_STEPS fib-square proof."""
     import starks_tpu_torch as stt
+    from starks_tpu_torch.air import _FusedAIRSetup
     from starks_tpu_torch.models import fib_square as fib
     from starks_tpu_torch.models.mimc import mimc_air, mimc_forward
     air = fib.fib_square_air()
+
+    def setup(air_, steps, path):
+        su, seconds, launches[path + SETUP] = setup_timed(
+            lambda: _FusedAIRSetup.get(air_, steps, stt.REFERENCE, device),
+            device)
+        check(launches[path + SETUP]["batch_inv"] == len(su.b_regs),
+              f"{path} set-up: {launches[path + SETUP]['batch_inv']} "
+              f"batch_inv launches, {len(su.b_regs)} bounded registers")
+        print_setup(path, seconds, launches[path + SETUP])
+        return seconds
 
     t0 = time.perf_counter()
     got = stt.prove_air(air, [1, 1], AIR_CHECK_STEPS, device=device)
@@ -1287,6 +1477,7 @@ def phase_air(device):
 
     proofs, steady_s, launches = {}, {}, {}
     for path, steps in ((FIB, SMALL_STEPS), (FIB_BIG, BIG_STEPS)):
+        setup_s = setup(air, steps, path)
         first, steady = {}, {}
         stt.prove_air(air, [1, 1], steps, device=device, timings=first)
         proof, launches[path] = counted(lambda: stt.prove_air(
@@ -1313,7 +1504,7 @@ def phase_air(device):
               f"s, output equals fib_square_output; changed boundary and "
               f"flipped leaf byte rejected", flush=True)
         print_launches(launches[path])
-        print_stages(first, steady)
+        print_stages(first, steady, setup_s)
         steady_s[steps] = steady["total"]
         proofs[steps] = proof
 
@@ -1325,6 +1516,7 @@ def phase_air(device):
           f"closure form's byte for byte", flush=True)
 
     m_air = mimc_air(AIR_CONSTS)
+    setup(m_air, SMALL_STEPS, MIMC_AIR)
     t0 = time.perf_counter()
     proof, launches[MIMC_AIR] = counted(lambda: stt.prove_air(
         m_air, [INP], SMALL_STEPS, device=device))
@@ -1335,7 +1527,8 @@ def phase_air(device):
           == mimc_forward(INP, SMALL_STEPS, AIR_CONSTS),
           "MiMC-as-AIR output boundary differs from mimc_forward")
     print(f"  MiMC as an AIR, {SMALL_STEPS} steps: verified, output equals "
-          f"mimc_forward ({t1 - t0:.3f} s incl. setup)", flush=True)
+          f"mimc_forward ({t1 - t0:.3f} s, first call after its set-up)",
+          flush=True)
     print_launches(launches[MIMC_AIR])
     return steady_s, launches, proofs[BIG_STEPS]
 
@@ -1534,7 +1727,7 @@ def phase_batch_ranks(proofs, launches):
     launches[BATCH_DP] = ranks[0]["launches"]
 
 
-def phase_air_batch(device, fib_proof16):
+def phase_air_batch(device, fib_proof16, launches):
     """Phase 10: general AIR proofs over a claim axis
     (`prove_air_batch_fused`). AIR_CHUNK fib-square claims at BIG_STEPS
     steps in one chunk, counted alone: every claim accepted by
@@ -1589,7 +1782,8 @@ def phase_air_batch(device, fib_proof16):
     print(f"  {AIR_BATCH}, counted alone: all {AIR_CHUNK} verified "
           f"({verify_s:.3f} s) with the outputs of fib_square_output; claims "
           f"0 and {last} equal the serial prove_air byte for byte; a changed "
-          f"boundary value rejected; first call {first_s:.3f} s; peak device "
+          f"boundary value rejected; first call {first_s:.3f} s on phase 5's "
+          f"cached set-up; peak device "
           f"memory {peak / 2 ** 30:.3f} GiB", flush=True)
     print_launches(launches)
     for stage, sec in steady.items():
@@ -1776,7 +1970,8 @@ def shard_rank(rank, steps):
     from starks_tpu_torch.parallel import mesh as pmesh
     mesh = pmesh.make_mesh()
     t0 = time.perf_counter()
-    stt.mk_mimc_proof(INP, steps, CONSTS, mesh=mesh)
+    _, first_launches = counted(lambda: stt.mk_mimc_proof(INP, steps, CONSTS,
+                                                          mesh=mesh))
     first_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(mesh.device)
     mesh.reset_counts()
@@ -1785,7 +1980,8 @@ def shard_rank(rank, steps):
     proof, launches = counted(lambda: stt.mk_mimc_proof(
         INP, steps, CONSTS, mesh=mesh, timings=steady))
     return {"proof": proof, "first_s": first_s, "steady": steady,
-            "launches": launches, "counts": mesh.counts,
+            "launches": launches, "first_launches": first_launches,
+            "counts": mesh.counts,
             "bytes": mesh.bytes, "seconds": mesh.seconds,
             "transport": mesh.transport, "device": str(mesh.device),
             "peak": torch.cuda.max_memory_allocated(mesh.device)}
@@ -1838,8 +2034,14 @@ def phase_sharded(steps, want, launches):
               and r["launches"]["dit_pass"] == 0
               and r["launches"]["fold4"] == rounds,
               f"rank {rank}: launches {r['launches']}")
-        print(f"  rank {rank} on {r['device']}: first call (with set-up) "
-              f"{r['first_s']:.3f} s, peak memory "
+        setup = {k: r["first_launches"][k] - v
+                 for k, v in r["launches"].items()
+                 if r["first_launches"][k] != v}
+        check(setup == {"sub": 2, "mul": 1, "batch_inv": 1},
+              f"rank {rank}: its set-up launched {setup}, expected its 1/Z2 "
+              f"on the card (sub 2, mul 1, batch_inv 1)")
+        print(f"  rank {rank} on {r['device']}: first call (with set-up, "
+              f"its 1/Z2 rows on the card) {r['first_s']:.3f} s, peak memory "
               f"{r['peak'] / 2 ** 30:.3f} GiB; steady stages (ms): "
               + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in
                           r["steady"].items()), flush=True)
@@ -1863,21 +2065,27 @@ def phase_config4(rows, device, proof16, launches):
     import torch
     import starks_tpu_torch as stt
     from starks_tpu_torch import prover
-    from starks_tpu_torch.ops import fused
-    from starks_tpu_torch.utils import hostfield
+    from starks_tpu_torch.utils import native
     phase_config4_kernels(rows, device)
     torch.cuda.empty_cache()
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
-    with Spy(fused, "powers") as powers, \
-            Spy(hostfield, "multi_inv") as multi_inv:
-        t0 = time.perf_counter()
-        prover._FusedSetup.get(CONFIG4_STEPS, stt.REFERENCE, device)
-        torch.cuda.synchronize(device)
-        setup_s = time.perf_counter() - t0
-    check(powers.calls == 0 and multi_inv.calls == 0,
-          f"the set-up built a table from Python ints ({powers.calls} "
-          f"powers, {multi_inv.calls} multi_inv calls)")
+    su, setup_s, launches[MIMC4 + SETUP] = setup_timed(
+        lambda: prover._FusedSetup.get(CONFIG4_STEPS, stt.REFERENCE, device),
+        device)
+    want = {"sub": 2, "mul": 1, "batch_inv": 1}
+    got = {k: v for k, v in launches[MIMC4 + SETUP].items() if v}
+    check(got == want, f"{MIMC4} set-up launches {got}, expected {want}")
+    print_setup(MIMC4, setup_s, launches[MIMC4 + SETUP])
+    last = pow(su.G2, (CONFIG4_STEPS - 1) * EXT, MODULUS)
+    t0 = time.perf_counter()
+    host = native.inv_vanishing2(su.plan.xs_big.cpu().numpy(), 1, last)
+    host_s = time.perf_counter() - t0
+    check(su.inv_z2.cpu().numpy().tobytes() == host.tobytes(),
+          f"{MIMC4} set-up: 1/Z2 differs from native.inv_vanishing2's")
+    print(f"  {MIMC4} set-up: 1/Z2 over {CONFIG4_STEPS * EXT} points equals "
+          f"the native runtime's (native.inv_vanishing2 {host_s:.3f} s on "
+          f"the host, with the table's copy)", flush=True)
     proof, first, steady, launches[MIMC4] = prove_and_check(CONFIG4_STEPS,
                                                             device)
     peak = torch.cuda.max_memory_allocated(device)
@@ -1885,9 +2093,7 @@ def phase_config4(rows, device, proof16, launches):
           and launches[MIMC4]["dif_pass"] == 2
           and launches[MIMC4]["fold4"] == 9,
           f"{MIMC4} launches {launches[MIMC4]}")
-    print(f"  {MIMC4}: set-up {setup_s:.3f} s (the native runtime's "
-          f"tables; no Python int per point: fused.powers and "
-          f"hostfield.multi_inv not called); peak device memory "
+    print(f"  {MIMC4}: set-up {setup_s:.3f} s; peak device memory "
           f"{peak / 2 ** 30:.3f} GiB; bin_length {stt.bin_length(proof)} B, "
           f"raw_length {stt.raw_length(proof)} B", flush=True)
     print(f"  sharded, {BIG_STEPS} steps:", flush=True)
@@ -2003,8 +2209,8 @@ def count_syncs(run, device) -> int:
 # thread, the elementwise frames' op.
 FIELD_KERNEL = re.compile(
     r"^(?:void )?(?:_Z\d+)?(dif_pass|dit_pass|stream_map|flat_map|binary|db"
-    r"|l|fold4|mimc_trace)_kernel(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<([\w, ]+)>)?"
-    r"(?:\(|P|$)")
+    r"|l|fold4|mimc_trace|batch_inv)_kernel"
+    r"(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<([\w, ]+)>)?(?:\(|P|$)")
 # The wrapper (and LAUNCHES key) each kernel or template op serves.
 KERNEL_KEYS = {"db": "db_map", "l": "l_map", "ScaleOp": "scale",
                "ScaleAccOp": "scale", "CubeOp": "cube", "MulOp": "mul",
@@ -2163,7 +2369,8 @@ def phase_launches(rows, launches):
         print(f"  {chunk}: every kernel's launches equal one {one} "
               f"proof's", flush=True)
     for path in (MIMC4, SHARDED.format(BIG_STEPS), MIMC4_SHARDED, MIMC_DEV,
-                 MIMC4_DEV, TRACE, BATCH_DP):
+                 MIMC4_DEV, TRACE, BATCH_DP, FIB_BIG + SETUP, FIB + SETUP,
+                 MIMC_AIR + SETUP, MIMC4 + SETUP):
         extra = [k for k, v in launches[path].items()
                  if v and k not in PATH_KERNELS[path]]
         check(not extra, f"the {path} path launched {extra}")
@@ -2214,6 +2421,7 @@ def main() -> int:
     phase_claims(rows, device)
     phase_elementwise_claims(rows, device)
     trace_launches = phase_trace(rows, device)
+    phase_batch_inv(rows, device)
     phase_dif_designs(device)
     phase_dit_designs(device)
     phase_stream_turns(device)
@@ -2241,8 +2449,8 @@ def main() -> int:
 
     announce(f"phase 10: AIR proofs over a claim axis ({AIR_CHUNK} x "
              f"fib-square {BIG_STEPS} steps in one chunk)")
-    air_chunk_steady_s, launches[AIR_BATCH] = phase_air_batch(device,
-                                                              fib_proof16)
+    air_chunk_steady_s, launches[AIR_BATCH] = phase_air_batch(
+        device, fib_proof16, launches)
 
     # Config 4 runs before phase 7: a profiler session slows every later
     # launch in the process.

@@ -125,12 +125,16 @@ class AIR:
         return rows
 
 
-def _eval_table(coeffs, xs, m: int):
-    """Evaluations of a polynomial at every x of `xs`; a constant is kept
-    as one value, which the kernels read periodically."""
-    if len(coeffs) == 1:
-        return [coeffs[0]]
-    return [hf.eval_poly_at(coeffs, x, m) for x in xs]
+def _eval_table(coeffs, xs, ops: TorchOps):
+    """Evaluations of a polynomial (host-int coefficients) at every x of
+    xs [n, 8], by Horner with the mul and add kernels, as JAX
+    `_FusedAIRSetup` evaluates a boundary basis (starks_tpu/air.py:
+    361-370); a constant is kept as one [1, 8] value, which the kernels
+    read periodically."""
+    ev = ops.const(coeffs[-1])
+    for c in reversed(coeffs[:-1]):
+        ev = plimbs.add(plimbs.mul(ev, xs), ops.const(c))
+    return ev
 
 
 class _FusedAIRSetup:
@@ -153,11 +157,12 @@ class _FusedAIRSetup:
         self.plan = fused.FusedPlan(steps, precision, G1, G2, device)
         self.ops = TorchOps(device)
 
-        xs = fused.powers(G2, precision)
+        # The domain tables on the device, from the plan's power table,
+        # as JAX builds them (starks_tpu/air.py:319-376).
+        xs = self.plan.xs_big
         last = pow(G2, (steps - 1) * ext, m)
         h = pow(G2, steps, m)
-        self.x_minus_last = ints_to_tensor([(x - last) % m for x in xs],
-                                           device)
+        self.x_minus_last = plimbs.sub(xs, self.ops.const(last))
         # 1/(x^steps - 1) is 8-periodic over the domain (zero where it
         # vanishes, as the reference's inv(0) = 0).
         self.zni = ints_to_tensor(
@@ -176,8 +181,9 @@ class _FusedAIRSetup:
                                               device))
 
         # Per bounded register: Lagrange basis evaluations and 1/Z_r,
-        # inverted once on the host (zeros map to zero, as the JAX
-        # package's batch_inv_scan does).
+        # Z_r the product of (x - x_b) over its boundary points, inverted
+        # by one batch inverse (zeros map to zero, as the JAX package's
+        # batch_inv_scan does).
         by_reg = {}
         for step, reg in air.boundary_points(steps):
             by_reg.setdefault(reg, []).append(step)
@@ -195,14 +201,14 @@ class _FusedAIRSetup:
                         num = hf._mul_linear(num, xl, m)
                         denom = denom * (xj - xl) % m
                 scale = hf.inv(denom, m)
-                basis_r.append(ints_to_tensor(
-                    _eval_table([c * scale % m for c in num], xs, m),
-                    device))
+                basis_r.append(_eval_table([c * scale % m for c in num],
+                                           xs, self.ops))
             self.basis.append(basis_r)
-            z = [1] * precision
+            z = None
             for xb in pts:
-                z = [zi * (x - xb) % m for zi, x in zip(z, xs)]
-            self.inv_z.append(ints_to_tensor(hf.multi_inv(z, m), device))
+                factor = plimbs.sub(xs, self.ops.const(xb))
+                z = factor if z is None else plimbs.mul(z, factor)
+            self.inv_z.append(plimbs.batch_inv(z))
 
         nb = len(self.b_regs)
         self.main_leaf_words = NUM_WORDS * (air.width + air.num_constraints

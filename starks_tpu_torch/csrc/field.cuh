@@ -583,6 +583,32 @@ FIELD_FN Fe div4(const Fe& x) {
 
 FIELD_FN Fe cube(const Fe& a) { return mul(sqr(a), a); }
 
+// p - 2, as words: [0xFFFFFFFF, 0xFFFFFEA0, 0xFFFFFFFF x 6] (249 one bits).
+FIELD_FN uint32_t p_minus_2_word(int i) {
+  return i == 1 ? 0xFFFFFEA0u : 0xFFFFFFFFu;
+}
+
+// The Fermat inverse x^(p-2) mod p, with inv(0) = 0: square and multiply
+// from the top bit (bit 255, taken by starting from x) down, 255
+// squarings and 248 products. Not unrolled: each step's bit is read from
+// p_minus_2_word, the same for every thread.
+FIELD_FN Fe inv(const Fe& x) {
+  Fe acc = x;
+#pragma unroll 1
+  for (int i = 254; i >= 0; --i) {
+    acc = sqr(acc);
+    if ((p_minus_2_word(i >> 5) >> (i & 31)) & 1u) acc = mul(acc, x);
+  }
+  return acc;
+}
+
+FIELD_FN bool is_zero(const Fe& x) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) any |= x.w[i];
+  return any == 0;
+}
+
 // x, canonical, for any x below 2^256 (x < 2p).
 FIELD_FN Fe canonical(Fe x) {
 #ifdef __CUDA_ARCH__

@@ -743,6 +743,39 @@ int mimc_trace_launch(const Fe* x0, const Fe* consts, uint32_t n_k, Fe* out,
 #endif
 }
 
+// Batch inversion: out[i] = 1 / x[i], and 0 where x[i] is 0 (the JAX
+// package's limbs.batch_inv and fused.batch_inv_scan, XLA scans with no
+// Pallas kernel). One thread per run of `run` consecutive elements, the
+// last run short: a forward pass writes each exclusive prefix product
+// of the run to out and carries the run's product (a zero counts as 1),
+// one Fermat inverse of that product, then a backward pass, out[i] *=
+// acc and acc *= x[i]. `run` changes no result: run = 1 is the
+// elementwise inverse.
+KERNEL batch_inv_kernel(const Fe* __restrict__ x, Fe* __restrict__ out,
+                        uint32_t n, uint32_t run) {
+  const uint32_t runs = (n + run - 1) / run;
+  FOR_EACH(r, runs) {
+    const uint32_t lo = r * run, hi = n - lo < run ? n : lo + run;
+    Fe acc{};
+    acc.w[0] = 1;
+    for (uint32_t i = lo; i < hi; ++i) {
+      const Fe v = x[i];
+      out[i] = acc;
+      if (!field::is_zero(v)) acc = field::mul(acc, v);
+    }
+    acc = field::inv(acc);
+    for (uint32_t i = hi; i-- > lo;) {
+      const Fe v = x[i];
+      if (field::is_zero(v)) {
+        out[i] = v;
+      } else {
+        out[i] = field::mul(out[i], acc);
+        acc = field::mul(acc, v);
+      }
+    }
+  }
+}
+
 #define F(ptr) ((const Fe*)(ptr))
 #define W(ptr) ((Fe*)(ptr))
 
@@ -932,6 +965,15 @@ int starks_mimc_trace_canonical(const void* x0, const void* consts,
                                 uint32_t batch, void* stream) {
   return mimc_trace_launch<CanonicalRound>(F(x0), F(consts), n_k, W(out),
                                            steps, batch, stream);
+}
+
+// 1 / x over n elements (0 where x is 0), one thread per run of
+// `run` >= 1 elements (the last run may be short).
+int starks_batch_inv(const void* x, void* out, uint32_t n, uint32_t run,
+                     void* stream) {
+  if (run == 0) return -1;
+  LAUNCH(batch_inv_kernel, (n + run - 1) / run, 1u, stream, F(x), W(out), n,
+         run);
 }
 
 // One thread's chain of `links` (a multiple of 16) dependent

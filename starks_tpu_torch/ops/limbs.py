@@ -1,11 +1,12 @@
 """The STARK field as PyTorch tensors, and the plain field arithmetic.
 
 Counterpart of `starks_tpu/ops/limbs.py` (add, sub, neg, mul, sqr,
-cube, pow_const, powers_series, eq_zero) plus the lane functions of
-`starks_tpu/ops/plimbs.py` (`_add_lanes`, `_sub_lanes`, `_mul_lanes`,
-`_cube_lanes`). No proof path calls neg, sqr, pow_const,
-powers_series or eq_zero: like their JAX counterparts, they are plain
-helpers with no kernel.
+cube, pow_const, powers_series, eq_zero, inv, batch_inv) plus the lane
+functions of `starks_tpu/ops/plimbs.py` (`_add_lanes`, `_sub_lanes`,
+`_mul_lanes`, `_cube_lanes`). No proof path calls neg, sqr, pow_const,
+powers_series, eq_zero or inv: like their JAX counterparts, they are
+plain helpers with no kernel. `batch_inv` is the plain version of the
+batch-inverse kernel (`plimbs.batch_inv`), which the set-ups run.
 
 Storage: a field element is a `torch.int32` tensor of shape [..., 8]
 holding the 8 little-endian 32-bit words of its canonical value (bits
@@ -223,3 +224,81 @@ def powers_series(g: torch.Tensor, n: int) -> torch.Tensor:
 def eq_zero(x: torch.Tensor) -> torch.Tensor:
     """Boolean [...]: True where x is 0."""
     return torch.all(x == 0, dim=-1)
+
+
+def inv(x: torch.Tensor) -> torch.Tensor:
+    """The Fermat inverse x^(p-2), elementwise; inv(0) = 0.
+
+    Counterpart of JAX `limbs.inv` (starks_tpu/ops/limbs.py:207) and
+    `fused.inv_scan` (starks_tpu/ops/fused.py:689). 503 plain products
+    over the whole array: for one element or a few."""
+    return pow_const(x, MODULUS - 2)
+
+
+def _int_of(x: torch.Tensor) -> int:
+    """One element ([8] storage) as a Python int."""
+    return sum(w << (32 * i) for i, w in enumerate(words_u32(x).tolist()))
+
+
+def _inv_one(x: torch.Tensor) -> torch.Tensor:
+    """x^(p-2) of one nonzero element ([1, 8]): the Fermat inverse of
+    `inv`, by Python's modular power on its one value rather than 503
+    plain products."""
+    v = pow(_int_of(x[0]), MODULUS - 2, MODULUS)
+    w = torch.tensor([(v >> (32 * i)) & _M32 for i in range(NUM_WORDS)],
+                     dtype=torch.int64, device=x.device)
+    return words_to_storage(w)[None]
+
+
+# Columns of batch_inv's blocked layout when `rows` is not given: C
+# sequential plain products a pass, over arrays of n / C elements.
+BATCH_INV_COLS = 16
+
+
+def _batch_inv_nonzero(v: torch.Tensor, rows=None) -> torch.Tensor:
+    """Inverses of nonzero elements [n, 8] by Montgomery's trick over a
+    blocked [R, C] layout (the tail padded with ones): each row's
+    exclusive prefix products, the R row totals inverted (recursively, by
+    the same trick, down to one Fermat inverse), then a backward pass,
+    out = prefix * acc and acc *= x, as the kernel runs each run."""
+    n = v.shape[0]
+    if n == 1:
+        return _inv_one(v)
+    rows = -(-n // BATCH_INV_COLS) if rows is None else rows
+    cols = -(-n // rows)
+    pad = _one_like(v[:1]).expand(rows * cols - n, NUM_WORDS)
+    x = torch.cat([v, pad]).reshape(rows, cols, NUM_WORDS)
+    prefix = torch.empty_like(x)
+    acc = _one_like(x[:, 0])
+    for c in range(cols):
+        prefix[:, c] = acc
+        acc = mul(acc, x[:, c])
+    acc = _batch_inv_nonzero(acc)                 # 1 / row totals
+    out = torch.empty_like(x)
+    for c in reversed(range(cols)):
+        out[:, c] = mul(prefix[:, c], acc)
+        acc = mul(acc, x[:, c])
+    return out.reshape(rows * cols, NUM_WORDS)[:n]
+
+
+def batch_inv(v: torch.Tensor, rows=None) -> torch.Tensor:
+    """Elementwise inverse of [n, 8] by Montgomery's trick; zeros map to
+    zero (each counts as 1 in the products).
+
+    Counterpart of JAX `limbs.batch_inv` (starks_tpu/ops/limbs.py:213)
+    and `fused.batch_inv_scan` (starks_tpu/ops/fused.py:706): the array
+    viewed as [R, C] rows (R = `rows`, default ceil(n / BATCH_INV_COLS)),
+    the in-row products vectorized across the R rows. The inverses are
+    unique, so any layout gives the same values; the row totals are
+    inverted by the same trick rather than a length-R scan, so no loop
+    runs over elements, only 3C products a level. `rows` is the JAX
+    function's own parameter; no caller sets it, and the tests set it
+    to show that the layout changes no value."""
+    if v.dim() != 2 or v.shape[-1] != NUM_WORDS:
+        raise ValueError(f"expected [n, 8] field elements, got "
+                         f"{tuple(v.shape)}")
+    if v.shape[0] == 0:
+        return v.clone()
+    zero = eq_zero(v)[:, None]
+    out = _batch_inv_nonzero(torch.where(zero, _one_like(v), v), rows)
+    return torch.where(zero, torch.zeros_like(v), out)

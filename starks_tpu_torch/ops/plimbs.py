@@ -17,7 +17,8 @@ tables keep their unbatched shape. The AIR's elementwise ops (`mul`,
 `add`, `sub`, `scale`, `cube`) take either form for each operand: an
 [L, 8] operand is shared by the claims, a [B, L, 8] one is per claim.
 The plain versions take the same leading axis by broadcasting.
-`mimc_trace` runs the MiMC recurrence over a claim batch.
+`mimc_trace` runs the MiMC recurrence over a claim batch, and
+`batch_inv` inverts an [n, 8] array (the set-ups' 1/Z tables).
 
 Bounds on the card (32-byte elements, n elements per array): bytes over
 3.35 TB/s against 32-bit integer multiply-adds over the card's peak
@@ -38,7 +39,7 @@ L16 = fl.to_limbs16
 
 LAUNCHES = dict.fromkeys(
     ["dif_pass", "dit_pass", "scale", "db_map", "l_map", "fold4", "mul",
-     "add", "sub", "cube", "mimc_trace"], 0)
+     "add", "sub", "cube", "mimc_trace", "batch_inv"], 0)
 
 # Stages per DIF or DIT pass: at most DIF_PASS_MAX_STAGES (a tile of 2^k
 # elements in shared memory), spread evenly over the fewest passes.
@@ -640,4 +641,57 @@ def mimc_trace(x0, consts, steps: int):
                       device=x0.device)
     _launch("mimc_trace", x0.device, x0, consts, consts.shape[0], out, steps,
             x0.shape[0])
+    return out
+
+
+# -- batch inversion (no Pallas counterpart) ------------------------------
+
+# Threads of batch_inv_kernel by default: each inverts a run of
+# n / BATCH_INV_THREADS elements (at least 1) with one Fermat inverse.
+# Chosen on the card (chip_smoke.py phase 2 times runs 1-256 at every
+# size the set-ups invert): fewer threads leave SMs idle, more make more
+# inverses.
+BATCH_INV_THREADS = 2**15
+
+
+def batch_inv_run(n: int) -> int:
+    """The default run length of batch_inv over n elements."""
+    return -(-n // BATCH_INV_THREADS)
+
+
+def batch_inv_plain(x):
+    """`limbs.batch_inv`: the same inverses as any run length gives."""
+    return fl.batch_inv(x)
+
+
+def batch_inv(x, run: int | None = None):
+    """1 / x over x [n, 8], with 1 / 0 = 0.
+
+    The counterpart of JAX `limbs.batch_inv` (starks_tpu/ops/limbs.py:213,
+    jitted as `kernels.batch_inv`, starks_tpu/ops/kernels.py:24) and its
+    scan form `fused.batch_inv_scan` (starks_tpu/ops/fused.py:706), which
+    the JAX set-ups run on the device; they are XLA scans, no Pallas
+    kernel. Runs `batch_inv_kernel` (csrc/kernels.cu): one thread per run
+    of `run` consecutive elements (default `batch_inv_run(n)`; any run
+    gives the same values), a forward pass of prefix products, one
+    Fermat inverse of the run's product (`field::inv`, 255 squarings and
+    248 products) and a backward pass. A zero counts as 1 in the
+    products and maps to 0. Bound of the function (Montgomery's trick:
+    3 modmuls per nonzero element and one inverse in all): operations,
+    about 148 x (3n + 503) multiply-adds, or bytes, 64n (x read and out
+    written, each once), whichever takes longer. The kernel does
+    148 x (3n + 503 n / run) and moves about 128n (the prefixes' round
+    trip through out): its inverses outweigh its other products below
+    run 168."""
+    if x.dim() != 2 or x.shape[0] == 0:
+        raise ValueError("x must be non-empty [n, 8]")
+    n = x.shape[0]
+    run = batch_inv_run(n) if run is None else run
+    if not 1 <= run <= 2**16 or n >= 2**31:
+        raise ValueError(f"run {run} not in [1, 2^16], or n {n} not below "
+                         f"2^31")
+    if not _on_card(x):
+        return batch_inv_plain(x)
+    out = torch.empty_like(x)
+    _launch("batch_inv", x.device, x, out, n, run)
     return out

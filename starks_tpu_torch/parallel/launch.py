@@ -139,6 +139,19 @@ def _rank_main(rank, n_ranks, device, backend, tmp, fn, args):
     finally:
         dist.destroy_process_group()
     Path(tmp, f"result{rank}.pkl").write_bytes(pickle.dumps(result))
+    _exit_without_finalizing()
+
+
+def _exit_without_finalizing():
+    """End a rank's process without finalizing the interpreter. A gloo
+    worker thread may still hold the last reference to a finished
+    collective's tensor; dropping it takes the GIL, and a thread that
+    asks for the GIL while the interpreter finalizes is ended by
+    pthread_exit, whose forced unwind aborts the process
+    (std::terminate, SIGABRT) after the rank's work is done."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 # torchrun's variables, which describe the group on every host.
@@ -566,5 +579,5 @@ if __name__ == "__main__":
             sys.exit(0)
         if len(args) == 2:
             batch_from_env(int(args[0]), int(args[1]), dev_arg)
-            sys.exit(0)
+            _exit_without_finalizing()
     sys.exit(__doc__)

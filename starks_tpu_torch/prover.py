@@ -91,6 +91,17 @@ class _StageTimer:
             self.out["total"] = time.perf_counter() - self.t0
 
 
+def _inv_vanishing2(xs, last: int):
+    """1/Z2 over the points xs [n, 8], Z2(x) = (x - 1)(x - last), on xs's
+    device (zeros map to zero): a constant of the config, built as the
+    JAX set-up builds it (starks_tpu/prover.py:436-449), by the sub and
+    mul kernels and one batch inverse. The JAX package cuts it in chunks
+    of 2^20 points for its HBM temporaries; here it runs whole."""
+    one, last = (int_to_tensor(v, xs.device)[None] for v in (1, last))
+    return plimbs.batch_inv(plimbs.mul(plimbs.sub(xs, one),
+                                       plimbs.sub(xs, last)))
+
+
 class _FusedSetup:
     """Per-(steps, config, device) schedule and constants."""
 
@@ -119,13 +130,9 @@ class _FusedSetup:
         self._kext = {}
 
     def _tables(self, last: int):
-        # 1/Z2 with Z2(x) = (x - 1)(x - last): a constant of the config,
-        # built by the native runtime from the plan's power table (zeros
-        # map to zero).
         self.plan = fused.FusedPlan(self.steps, self.precision, self.G1,
                                     self.G2, self.device)
-        self.inv_z2 = torch.from_numpy(native.inv_vanishing2(
-            self.plan.xs_big.cpu().numpy(), 1, last)).to(self.device)
+        self.inv_z2 = _inv_vanishing2(self.plan.xs_big, last)
 
     @classmethod
     def get(cls, steps: int, config: StarkConfig, device) -> "_FusedSetup":
@@ -151,8 +158,8 @@ class _FusedSetup:
 class _ShardedSetup(_FusedSetup):
     """One shard's set-up for a sharded proof over `mesh`: the scalars of
     `_FusedSetup`, the four-step plans of the trace and evaluation
-    domains, and only this shard's rows of the domain tables (x, 1/Z2,
-    the FRI u-table), built by the native runtime."""
+    domains, and only this shard's rows of the domain tables (x and the
+    FRI u-table from the native runtime, 1/Z2 on the device)."""
 
     def __init__(self, steps: int, config: StarkConfig, mesh):
         self.mesh = mesh
@@ -166,10 +173,9 @@ class _ShardedSetup(_FusedSetup):
         self.offset = r * rows
         self.plan_trace = ntt4step.get_plan(self.steps, self.G1, mesh)
         self.plan_lde = ntt4step.get_plan(n, self.G2, mesh)
-        xs = native.power_slice(self.G2, self.offset, rows)
-        self.xs = torch.from_numpy(xs).to(dev)
-        self.inv_z2 = torch.from_numpy(
-            native.inv_vanishing2(xs, 1, last)).to(dev)
+        self.xs = torch.from_numpy(native.power_slice(
+            self.G2, self.offset, rows)).to(dev)
+        self.inv_z2 = _inv_vanishing2(self.xs, last)
         # Round 0's u-table rows [r q/s, (r+1) q/s): every round's
         # columns on this shard read them at stride 4^round.
         self.inv_g2 = hf.inv(self.G2)

@@ -5,21 +5,18 @@ JAX package's `prove_air` byte for byte, both verifiers accept them and
 reject tampered proofs, the declarative form gives the same bytes, and
 the MiMC AIR's output is mimc_forward's. Over a claim axis,
 `prove_air_batch_fused` gives each claim JAX `prove_air`'s bytes and
-the port's `prove_air`'s.
+the port's `prove_air`'s. The set-up's tables (x - last, boundary
+bases, 1/Z_r), built on the device, equal the JAX set-up's.
 
 The JAX proofs cost XLA:CPU compiles of one to two minutes, so they run
-once, in a fresh interpreter (tests/_subproc.py says why), started when
-this module's first test starts; the tests that compare the bytes come
-last and wait for it."""
+once, in a fresh interpreter (tests/_subproc.py says why;
+tests/_torch_support.py's JaxChild), started when this module's first
+test starts; the tests that compare the bytes come last and wait for
+it."""
 
-import atexit
 import copy
-import os
-import pickle
-import subprocess
-import sys
-from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,27 +26,19 @@ import starks_tpu_torch as stt
 from starks_tpu_torch.air import HostOps, TorchOps, _FusedAIRSetup
 from starks_tpu_torch.models import fib_square as fib
 from starks_tpu_torch.models.mimc import mimc_air, mimc_forward
+from starks_tpu_torch.ops import limbs as fl
+from _torch_support import JaxChild, refusing_host_tables
 
-ROOT = Path(__file__).resolve().parent.parent
 STEPS = 64
 CONSTS = [(i ** 7) ^ 42 for i in range(16)]
 JAX_TIMEOUT_S = 1200
 BATCH_CLAIMS = [[1, 1], [2, 3], [5, 8]]     # proved in chunks of 2
 
-# The child asks the kernel to kill it when its parent dies
-# (PR_SET_PDEATHSIG), so a test run cut short never leaves the compile
-# running; the pid check covers a parent that died before the request.
 _JAX_PROVE = """
-import ctypes, os, pickle, signal, sys
-ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
-if os.getppid() != int(sys.argv[3]):
-    sys.exit(1)
-import jax
-jax.config.update("jax_platforms", "cpu")
-from starks_tpu.air import AIR, prove_air
+from starks_tpu.air import AIR, _FusedAIRSetup, prove_air
 from starks_tpu.models.fib_square import fib_square_air
 M = 2 ** 256 - 351 * 2 ** 32 + 1
-steps = int(sys.argv[2])
+steps = int(inputs["steps"])
 # MiMC as an AIR, as tests/_air_impl.py builds it (TestMimcAsAir._air).
 mimc = AIR(width=1, step_fn=lambda s, c: [(s[0] ** 3 + c[0]) % M],
            transition=lambda cur, nxt, c, ops: [
@@ -57,39 +46,30 @@ mimc = AIR(width=1, step_fn=lambda s, c: [(s[0] ** 3 + c[0]) % M],
            num_constraints=1, constants=[[(i ** 7) ^ 42 for i in range(16)]],
            boundary_points=lambda n: [(0, 0), (n - 1, 0)])
 fib = fib_square_air()
-proofs = {"fib": prove_air(fib, [1, 1], steps),
-          "mimc": prove_air(mimc, [3], steps)}
+outputs["fib"] = prove_air(fib, [1, 1], steps)
+outputs["mimc"] = prove_air(mimc, [3], steps)
 # More claims of the same AIR and shapes: no new compile.
 for claim in ([2, 3], [5, 8]):
-    proofs[f"fib{claim}"] = prove_air(fib, claim, steps)
-with open(sys.argv[1], "wb") as f:
-    pickle.dump(proofs, f)
+    outputs[f"fib{claim}"] = prove_air(fib, claim, steps)
+# The set-up tables the proofs used (cached by _FusedAIRSetup.get).
+for name, air in (("fib", fib), ("mimc", mimc)):
+    t = _FusedAIRSetup.get(air, steps).tables
+    outputs[f"tables {name}"] = {
+        "x_minus_last": np.asarray(t["x_minus_last"]),
+        "basis": [[np.asarray(b) for b in reg] for reg in t["basis"]],
+        "inv_z": [np.asarray(z) for z in t["inv_z"]]}
 """
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_air_run(tmp_path_factory):
     """JAX `prove_air` of fib-square (BATCH_CLAIMS) and of MiMC as an AIR
-    ([3]) at STEPS in a subprocess, running while this module's other
-    tests do: (process, proof file)."""
-    out = tmp_path_factory.mktemp("jax_air") / "proof.pkl"
-    # The compile is nearly all of the cost and the proof is tiny: with
-    # XLA's backend optimisation off it takes half the CPU time. Integer
-    # arithmetic is exact either way.
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
-                        + " --xla_backend_optimization_level=0"
-                        " --xla_llvm_disable_expensive_passes=true").strip()
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _JAX_PROVE, str(out), str(STEPS),
-         str(os.getpid())], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
-    atexit.register(proc.kill)
-    yield proc, out
-    atexit.unregister(proc.kill)
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    ([3]) at STEPS, and the set-up tables of each, in a child process
+    running while this module's other tests do."""
+    child = JaxChild(_JAX_PROVE, tmp_path_factory.mktemp("jax_air"),
+                     steps=np.array(STEPS))
+    yield child
+    child.stop()
 
 
 @pytest.fixture(scope="module")
@@ -236,18 +216,15 @@ def test_batch_rejects_bad_chunk_and_needs_a_card(monkeypatch):
 
 @pytest.fixture(scope="module")
 def jax_proofs(jax_air_run):
-    """The JAX proofs, once the subprocess started with this module has
-    written them: {"fib": ..., "mimc": ..., "fib[2, 3]": ..., ...}."""
-    proc, out = jax_air_run
-    stdout, stderr = proc.communicate(timeout=JAX_TIMEOUT_S)
-    assert proc.returncode == 0, f"JAX prove_air failed:\n{stderr[-4000:]}"
-    with open(out, "rb") as f:
-        return pickle.load(f)
+    """The JAX proofs, once the child started with this module has
+    written them: {"fib": ..., "mimc": ..., "fib[2, 3]": ..., ...}, and
+    the set-up tables of each AIR ("tables fib", "tables mimc")."""
+    return jax_air_run.result(JAX_TIMEOUT_S)
 
 
 def test_proof_equals_jax_prove_air(fib_proof, jax_proofs):
     """Byte equality with the JAX package's prover (kept last but one:
-    it waits for the subprocess started with this module)."""
+    it waits for the child started with this module)."""
     assert fib_proof[0] == jax_proofs["fib"]
 
 
@@ -265,3 +242,32 @@ def test_batch_equals_jax_prove_air(batch_proofs, jax_proofs):
                                   for c in BATCH_CLAIMS[1:]]
     for proof, ref in zip(batch_proofs, want):
         assert proof == ref
+
+
+@pytest.mark.parametrize("name", ["fib", "mimc"])
+def test_setup_tables_equal_jax(jax_proofs, name):
+    """The set-up's x - last, boundary bases and 1/Z_r, built on the
+    device by the kernels (their plain versions here) and one batch
+    inverse per bounded register, equal JAX `_FusedAIRSetup.tables`
+    (starks_tpu/air.py:319-376), zeros of 1/Z_r included: fib-square has
+    a register with one boundary point and one with two, MiMC as an AIR
+    one with two. No table is built on the host; a constant basis is
+    one [1, 8] value, which JAX tiles."""
+    air = fib.fib_square_air() if name == "fib" else mimc_air(CONSTS)
+    with refusing_host_tables():
+        su = _FusedAIRSetup(air, STEPS, stt.REFERENCE, "cpu")
+    want = jax_proofs[f"tables {name}"]
+    n = STEPS * 8
+
+    def same(table, ref):
+        return np.array_equal(fl.to_jax_limbs(table.expand(n, 8)), ref)
+
+    assert same(su.x_minus_last, want["x_minus_last"])
+    assert [len(b) for b in su.basis] == [len(b) for b in want["basis"]]
+    for got_r, want_r in zip(su.basis, want["basis"]):
+        assert all(same(g, w) for g, w in zip(got_r, want_r))
+        assert all(g.shape[0] in (1, n) for g in got_r)
+    assert len(su.inv_z) == len(want["inv_z"])
+    for got, ref, reg in zip(su.inv_z, want["inv_z"], su.b_regs):
+        assert same(got, ref)
+        assert int(fl.eq_zero(got).sum()) == len(su.b_steps[reg])

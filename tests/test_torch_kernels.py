@@ -406,6 +406,8 @@ def _host_cases():
         "cube": (plimbs.cube_plain(x), [x], [n, 1], (n, 8)),
         "mimc_trace": (plimbs.mimc_trace_plain(x[:3], k[:5], 9),  # n_k odd
                        [x[:3], k[:5], 5], [9, 3], (3, 9, 8)),
+        "batch_inv": (plimbs.batch_inv_plain(x), [x], [n, 7],  # zeros in x
+                      (n, 8)),
     }
 
 

@@ -5,7 +5,8 @@ tests/test_torch_parallel_ranks.py; each mesh is started once).
 - Sharded MiMC proofs at 128 steps with 32 constants (the JAX mesh
   test's sizes) over meshes 1x2, 1x4 and 2x2 equal
   `oracle.stark.mk_mimc_proof` and the single-device port byte for
-  byte, on every rank; an inconsistent trace is proved verbatim;
+  byte, on every rank; each rank's set-up 1/Z2 is its rows of the
+  single-device table; an inconsistent trace is proved verbatim;
   `prove_batch(mesh=)` equals serial proofs.
 - The data-parallel batch (`prove_batch(mesh=None)` under 2 and 4
   ranks): each rank proves its `local_slice`, `gather_proofs` gives rank
@@ -26,7 +27,6 @@ tests/test_torch_parallel_ranks.py; each mesh is started once).
 
 import atexit
 import functools
-import os
 import shutil
 import subprocess
 import sys
@@ -47,6 +47,7 @@ from starks_tpu_torch.ops import limbs as fl
 from starks_tpu_torch.parallel import batch as pbatch
 from starks_tpu_torch.parallel import launch, ntt4step
 import test_torch_parallel_ranks as ranks
+from _torch_support import JaxChild
 
 ROOT = Path(__file__).resolve().parent.parent
 M = ranks.M
@@ -55,60 +56,38 @@ JAX_TIMEOUT_S = 900
 # name -> (ranks, batch rows, what the ranks run)
 MESHES = {
     "1x2": (2, 1, ("proof", "tree", "db_map", "fri", "batch_dp")),
-    "1x4": (4, 1, ("proof", "with_trace", "fourstep", "tree", "db_map",
-                   "fri", "low_degree", "batch_dp", "batch_resume")),
+    "1x4": (4, 1, ("proof", "setup", "with_trace", "fourstep", "tree",
+                   "db_map", "fri", "low_degree", "batch_dp",
+                   "batch_resume")),
     "2x2": (4, 2, ("proof", "prove_batch")),
     "1x8": (8, 1, ("fri", "low_degree")),
 }
 
 _JAX_FOURSTEP = """
-import ctypes, os, signal, sys
-ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
-if os.getppid() != int(sys.argv[3]):
-    sys.exit(1)
-import numpy as np
-import jax
-jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 from starks_tpu.parallel import ntt4step
 from starks_tpu.parallel.mesh import make_mesh, shard_rows
-vals = np.load(sys.argv[1])
+vals = inputs["vals"]
 mesh = make_mesh(n_shard=4)
-plan = ntt4step.get_plan(vals.shape[0], int(sys.argv[2]), mesh)
+plan = ntt4step.get_plan(vals.shape[0], int(inputs["root"]), mesh)
 x = jax.device_put(jnp.asarray(vals), shard_rows(mesh))
-np.savez(sys.argv[1] + ".out.npz",
-         fwd=np.asarray(ntt4step.fourstep_ntt_shmap(x, plan)),
-         inv=np.asarray(ntt4step.fourstep_ntt_shmap(x, plan, inverse=True)))
+outputs["fwd"] = np.asarray(ntt4step.fourstep_ntt_shmap(x, plan))
+outputs["inv"] = np.asarray(ntt4step.fourstep_ntt_shmap(x, plan,
+                                                        inverse=True))
 """
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_fourstep_run(tmp_path_factory):
     """JAX `fourstep_ntt_shmap` forward and inverse of the 2^10-point
-    input of the ranks, over 4 virtual CPU devices, in a subprocess
-    running while this module's other tests do: (process, input file).
-    The child dies with its parent (PR_SET_PDEATHSIG)."""
-    inp = tmp_path_factory.mktemp("jax_fourstep") / "vals.npy"
-    np.save(inp, fl.to_jax_limbs(ranks.field_array(JAX_N, JAX_N)))
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    flags = [f for f in env.get("XLA_FLAGS", "").split()
-             if "host_platform_device_count" not in f]
-    # Compile time is nearly all of the cost; integer results are exact
-    # at any optimisation level.
-    env["XLA_FLAGS"] = " ".join(flags + [
-        "--xla_force_host_platform_device_count=4",
-        "--xla_backend_optimization_level=0",
-        "--xla_llvm_disable_expensive_passes=true"])
-    proc = subprocess.Popen(
-        [sys.executable, "-c", _JAX_FOURSTEP, str(inp),
-         str(ranks.root_of_unity(JAX_N)), str(os.getpid())], cwd=ROOT,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    atexit.register(proc.kill)
-    yield proc, inp
-    atexit.unregister(proc.kill)
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    input of the ranks, over 4 virtual CPU devices, in a child process
+    running while this module's other tests do."""
+    child = JaxChild(_JAX_FOURSTEP, tmp_path_factory.mktemp("jax_fourstep"),
+                     devices=4,
+                     vals=fl.to_jax_limbs(ranks.field_array(JAX_N, JAX_N)),
+                     root=np.array(str(ranks.root_of_unity(JAX_N))))
+    yield child
+    child.stop()
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,6 +140,23 @@ def test_sharded_proof_collectives():
     for r in mesh_results("1x4"):
         assert r["proof_counts"] == {"all_to_all_single": 9, "halo": 1,
                                      "all_gather": 5, "all_reduce": 6}
+
+
+def test_sharded_setup_inv_z2_is_its_rows_of_the_one_card_table():
+    """Each of 4 ranks builds 1/Z2 for its own rows only, from an offset
+    (the vanishing points x = 1 and x = last on the shards that hold
+    them), with the kernels and no host table: its rows of the one-card
+    set-up's table, exactly."""
+    whole = stt.prover._FusedSetup(ranks.PROOF_STEPS, stt.REFERENCE,
+                                   "cpu").inv_z2
+    rows = whole.shape[0] // 4
+    zeros = 0
+    for r in mesh_results("1x4"):
+        offset, inv_z2 = r["setup"]
+        assert offset == r["shard"] * rows
+        assert inv_z2.equal(whole[offset:offset + rows])
+        zeros += int(fl.eq_zero(inv_z2).sum())
+    assert zeros == 2
 
 
 def test_sharded_with_trace_proves_an_inconsistent_trace_verbatim():
@@ -485,10 +481,7 @@ def test_make_mesh_needs_a_process_group_and_a_grid():
 
 @pytest.fixture(scope="module")
 def jax_fourstep(jax_fourstep_run):
-    proc, inp = jax_fourstep_run
-    stdout, stderr = proc.communicate(timeout=JAX_TIMEOUT_S)
-    assert proc.returncode == 0, stderr[-4000:]
-    return np.load(str(inp) + ".out.npz")
+    return jax_fourstep_run.result(JAX_TIMEOUT_S)
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 import starks_tpu_torch as stt
+from starks_tpu_torch import prover
 from starks_tpu_torch.models import mimc
 from starks_tpu_torch.ops import blake2s as b2
 from starks_tpu_torch.ops import fused, merkle, plimbs
@@ -17,6 +18,7 @@ from starks_tpu_torch.parallel import ntt4step
 from starks_tpu_torch.utils.artifacts import ProofStore
 from starks_tpu_torch.utils import hostfield as hf
 from starks_tpu_torch.utils.conversions import int_to_tensor
+from _torch_support import refusing_host_tables
 
 M = 2 ** 256 - 351 * 2 ** 32 + 1
 PROOF_STEPS, PROOF_CONSTS = 128, [(i ** 7) ^ 42 for i in range(32)]
@@ -87,6 +89,11 @@ def mesh_checks(rank: int, n_batch: int, parts, fill_root=None,
         out["proof"], out["proof_counts"] = _counted(
             mesh, lambda: stt.mk_mimc_proof(3, PROOF_STEPS, PROOF_CONSTS,
                                             mesh=mesh))
+    if "setup" in parts:
+        # Built afresh (the proof's is cached), with no host table.
+        with refusing_host_tables():
+            su = prover._ShardedSetup(PROOF_STEPS, stt.REFERENCE, mesh)
+        out["setup"] = (su.offset, su.inv_z2)
     if "with_trace" in parts:
         out["with_trace"] = stt.mk_mimc_proof_with_trace(
             3, PROOF_STEPS, PROOF_CONSTS, bad_trace(), mesh=mesh)

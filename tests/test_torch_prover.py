@@ -1,9 +1,13 @@
 """The port's whole slice on the CPU: mk_mimc_proof with the plain
 versions of the kernels equals the spec oracle's proof byte for byte, and
-both the port's verifier and the JAX package's verifier accept it."""
+both the port's verifier and the JAX package's verifier accept it; the
+set-up's 1/Z2, built by the kernels, equals the JAX set-up's (computed
+in a child process started with this module), the native runtime's and
+`hostfield.multi_inv`'s."""
 
 import random
 
+import numpy as np
 import pytest
 
 from oracle import fri as ofri
@@ -13,12 +17,37 @@ from starks_tpu import verifier as jverifier
 import starks_tpu_torch as stt
 from starks_tpu_torch.config import REFERENCE
 from starks_tpu_torch.ops import fused
+from starks_tpu_torch.ops import limbs as fl
 from starks_tpu_torch.prover import _FusedSetup
 from starks_tpu_torch.utils import hostfield as hf
+from starks_tpu_torch.utils import native
 from starks_tpu_torch.utils.conversions import tensor_to_ints
+from _torch_support import JaxChild, refusing_host_tables
 
 CONSTS = [(i ** 7) ^ 42 for i in range(16)]
 M = stt.MODULUS
+SETUP_STEPS = (64, 512)
+JAX_TIMEOUT_S = 600
+
+# The set-ups compile in threads (XLA compiles without the GIL).
+_JAX_SETUPS = f"""
+from concurrent.futures import ThreadPoolExecutor
+from starks_tpu.config import REFERENCE
+from starks_tpu.prover import _FusedSetup
+with ThreadPoolExecutor() as pool:
+    outputs.update(zip({SETUP_STEPS}, pool.map(
+        lambda steps: np.asarray(_FusedSetup(steps, REFERENCE).inv_z2),
+        {SETUP_STEPS})))
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_setups(tmp_path_factory):
+    """JAX `_FusedSetup(steps, REFERENCE).inv_z2` for SETUP_STEPS, in a
+    child process running while this module's other tests do."""
+    child = JaxChild(_JAX_SETUPS, tmp_path_factory.mktemp("jax_setups"))
+    yield child
+    child.stop()
 
 
 @pytest.mark.parametrize("steps", [64, 256])
@@ -90,11 +119,29 @@ def test_prove_low_degree_base_case_and_tamper():
 
 @pytest.mark.parametrize("steps", [64, 2 ** 13])
 def test_inv_z2_equals_multi_inv(steps):
-    """The set-up's 1/Z2, built by the native runtime from the power
-    table, equals `hostfield.multi_inv` of (x - 1)(x - last) over Python
-    ints (zeros map to zero), as the set-up built it before."""
-    su = _FusedSetup(steps, REFERENCE, "cpu")
+    """The set-up's 1/Z2, built by the sub, mul and batch-inverse kernels
+    (their plain versions here) over the plan's power table, equals
+    `hostfield.multi_inv` of (x - 1)(x - last) over Python ints (zeros
+    map to zero), and the set-up builds no table on the host."""
+    with refusing_host_tables():
+        su = _FusedSetup(steps, REFERENCE, "cpu")
     last = pow(su.G2, (steps - 1) * su.ext, M)
     want = hf.multi_inv([(x - 1) * (x - last) % M
                          for x in fused.powers(su.G2, su.precision)])
     assert tensor_to_ints(su.inv_z2) == want
+
+
+# -- against the JAX set-up (last: they wait for the child) ---------------
+
+@pytest.mark.parametrize("steps", SETUP_STEPS)
+def test_inv_z2_equals_jax_and_native(jax_setups, steps):
+    """1/Z2 equals the JAX set-up's (`batch_inv_scan` on the device,
+    starks_tpu/prover.py:436-449) and the native runtime's
+    `inv_vanishing2` over the same power table, zeros included."""
+    su = _FusedSetup(steps, REFERENCE, "cpu")
+    last = pow(su.G2, (steps - 1) * su.ext, M)
+    native_z2 = native.inv_vanishing2(su.plan.xs_big.numpy(), 1, last)
+    assert su.inv_z2.numpy().tobytes() == native_z2.tobytes()
+    assert np.array_equal(fl.to_jax_limbs(su.inv_z2),
+                          jax_setups.result(JAX_TIMEOUT_S)[steps])
+    assert int(fl.eq_zero(su.inv_z2).sum()) == 2         # x = 1, x = last
