@@ -46,12 +46,15 @@ Phases (any failure exits non-zero and prints no result):
      dependent IMAD.WIDE and 10 dependent IADD3 a step, their latencies
      timed on one thread); `trace_batch_device` of 64 claims at 2^16
      steps against the native host trace of each claim; batch inversion
-     (`batch_inv_kernel`, the set-ups' 1/Z tables) against its plain
-     version and hostfield.multi_inv at 1, 3, 257 and 2^16 + 7 elements
-     and at each size a set-up inverts, 2^16, 2^17, 2^19, 2^21 and 2^23
-     (zeros, 1, p - 1 and random elements from the seed), at run
-     lengths 1 and its default, timed at each set-up size for run
-     lengths 1-256 beside the function's bound;
+     (the block scan `batch_inv_up/top/down_kernel`, the set-ups' 1/Z
+     tables; the replaced design, one thread per run, beside it) against
+     its plain version and hostfield.multi_inv at 1, 3, 257 and 2^16 + 7
+     elements and at each size a set-up inverts, 2^16, 2^17, 2^19, 2^21
+     and 2^23 (zeros, 1, p - 1 and random elements from the seed), the
+     two timed in turns at each set-up size and at one element (the
+     inverse alone) beside the function's bound and the scan's chain
+     floor; its CUDA launches per call are counted under the profiler in
+     phase 7;
   3. the main path: a 2^13-step proof, equal byte for byte to the spec
      oracle (oracle/stark.py) and accepted by the port's verifier;
   4. a 2^16-step proof (2^19-point evaluation domain), accepted by the
@@ -80,7 +83,10 @@ Phases (any failure exits non-zero and prints no result):
      first launches of the port's kernels, so each profile starts with
      a primer of its own launches and counts only the device events
      inside the profiled run's range; whatever the profiler still loses
-     is printed, and the busy share is then marked a lower bound);
+     is printed, and the busy share is then marked a lower bound); the
+     CUDA kernels of one batch inverse at one element and at each size
+     a set-up inverts, as the profiler lists them, each 2L - 1 for the
+     scan's L levels;
   8. every kernel's launches on each main path: the steady MiMC 2^16,
      fib-square 2^13 and 2^16 proofs, the MiMC-as-AIR proof, the batch
      and AIR chunks, the all-device proofs and the device trace, each
@@ -101,13 +107,16 @@ Phases (any failure exits non-zero and prints no result):
      map at 2^23 and on a shard with its halo, the L map, fold4 at all
      nine rounds and on a shard's quarter slices, the twiddle product),
      and NTT points/s at 2^20; the set-up of a 2^20 proof, counted alone
-     and timed: 1/Z2 on the card (sub 2, mul 1, batch_inv 1; no host
-     table function called), equal to native.inv_vanishing2's; a first
+     and timed, with its stage seconds (host power tables, upload, 1/Z2's
+     sub, sub and mul, the batch inverse, the rest): 1/Z2 on the card
+     (sub 2, mul 1, batch_inv 1; no host table function called), equal
+     to native.inv_vanishing2's; a first
      and a steady proof with stage times, verified, a flipped byte
      rejected, peak memory and size; then SHARDS ranks (parallel/launch.py), each on cuda:(rank %
      device_count), prove 2^16 and 2^20 steps sharded: every rank's
      proof equals the one-card proof byte for byte, and its set-up
-     builds its rows of 1/Z2 on the card; per rank the stage times, each
+     (built alone first, rank 0's stage seconds printed) builds its rows
+     of 1/Z2 on the card; per rank the stage times, each
      collective's count, bytes sent to other ranks and seconds, the
      transport, and the launches (phase 8 counts both paths).
   10. general AIR proofs over a claim axis (`prove_air_batch_fused`), run
@@ -137,6 +146,17 @@ Phases (any failure exits non-zero and prints no result):
 Phase 8 also requires the config 4 paths, the all-device proofs, the
 device trace, config 5 over ranks and the set-ups to launch only their
 kernels; the set-ups are the paths of batch_inv.
+
+    python3 chip_smoke.py --setups [ROOT]
+
+times the set-ups of the port in ROOT instead (default: this checkout;
+another commit's tree, unpacked with `git archive`, runs its own code
+and builds its own kernels): after a fib-square 2^10 proof on the card,
+each of fib-square 2^13 and 2^16, MiMC as an AIR at 2^13 and MiMC at
+2^20 (config 4) built anew SETUP_REPS times, each build's seconds to the
+card's end; then one fib-square 2^16 set-up under cProfile (the host
+functions that take the most time) and one under torch.profiler (its
+kernels' device time). Run it on two trees in turns to compare them.
 
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
@@ -188,13 +208,16 @@ CHAIN_LINKS = 2 ** 20         # dependent instructions per latency chain
 # Batch inversion: timed at every size a set-up inverts (2^16 the
 # 2^13-step set-ups' tables, 2^17 a rank's 1/Z2 in the sharded 2^16-
 # step proof, 2^19 the 2^16-step set-ups' tables, 2^21 a rank's 1/Z2 in
-# config 4's sharded proof, 2^23 config 4's 1/Z2) for each run length of INV_RUNS; checked at those and at short
-# sizes, against hostfield.multi_inv on Python ints up to INV_INTS.
+# config 4's sharded proof, 2^23 config 4's 1/Z2) and at one element;
+# checked at those and at short sizes, against hostfield.multi_inv on
+# Python ints up to INV_INTS.
 INV_TIMED = (SMALL_STEPS * EXT, 2 ** 17, BIG_STEPS * EXT,
              CONFIG4_STEPS * EXT // SHARDS, CONFIG4_STEPS * EXT)
 INV_SIZES = (1, 3, 257, BIG_STEPS + 7) + INV_TIMED
 INV_INTS = BIG_STEPS * EXT
-INV_RUNS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+INV_OLD_THREADS = 2 ** 15     # the replaced design's threads (its run)
+INV_CHAIN_SQR = 255           # field::inv_chain: squarings ...
+INV_CHAIN_MUL = 17            # ... and products
 
 # Bound model. Bytes: HBM at 3.35 TB/s (H100 SXM data sheet). Operations:
 # 32-bit integer multiply-adds at 64 per clock per SM (CUDA C++
@@ -259,6 +282,9 @@ MIMC4_SHARDED = SHARDED.format(CONFIG4_STEPS)
 # The set-ups (each counted alone, built before its first proof): the
 # domain tables built on the card, one batch inverse per 1/Z table.
 SETUP = " set-up"
+# --setups: builds of each set-up timed, and rows of its host profile.
+SETUP_REPS = 3
+SETUP_PROFILE_ROWS = 15
 AIR_SETUP_KERNELS = ["sub", "mul", "add", "batch_inv"]
 # The sharded LDE is two four-step NTTs: DIF passes over a claim axis
 # and the twiddle product (mul); no DIT pass.
@@ -813,31 +839,81 @@ def phase_elementwise_claims(rows, device):
 def inv_ops(x) -> int:
     """Least operations of the function batch_inv computes over x, by
     Montgomery's trick: a forward product and two backward products per
-    nonzero element (a zero skips them) and one Fermat inverse (255
-    squarings, 248 modmuls) in all, whatever the kernel's run length."""
+    nonzero element (a zero skips them) and one Fermat inverse in all,
+    by the addition chain of field::inv_chain (255 squarings, 17
+    products), whatever the kernels' tile shape."""
     from starks_tpu_torch.ops import limbs as fl
     nonzero = x.shape[0] - int(fl.eq_zero(x).sum())
-    return 3 * nonzero * OPS_MUL + 255 * OPS_SQR + 248 * OPS_MUL
+    return (3 * nonzero * OPS_MUL + INV_CHAIN_SQR * OPS_SQR
+            + INV_CHAIN_MUL * OPS_MUL)
+
+
+def inv_chain_products(n) -> int:
+    """Dependent products on the critical path of the block scan over n
+    elements at `plimbs.batch_inv_shape(n)`: per level below the top, the
+    up-sweep's group chain (k products) and tree (log2 T), the down-
+    sweep's group product from its last prefix (1), tree up and down
+    (2 log2 T) and backward chain (k); at the top block (T', k'), its
+    forward chain, tree up, the inverse's 255 squarings and 17 products,
+    tree down and backward chain."""
+    from starks_tpu_torch.ops import plimbs
+    threads, k, k_up = plimbs.batch_inv_shape(n)
+    levels = plimbs.batch_inv_levels(n, threads, k, k_up)
+    depth = threads.bit_length() - 1
+    total = 0
+    for lvl in range(len(levels) - 1):
+        kl = k if lvl == 0 else k_up
+        total += (kl + depth) + (1 + 2 * depth + kl)
+    m = levels[-1]
+    t_top, k_top = 32, 1
+    while t_top < threads and t_top < m:
+        t_top *= 2
+    while k_top < (k if len(levels) == 1 else k_up) and t_top * k_top < m:
+        k_top *= 2
+    top_depth = t_top.bit_length() - 1
+    return (2 * k_top + 2 * top_depth + INV_CHAIN_SQR + INV_CHAIN_MUL
+            + total)
+
+
+def inv_replaced(x):
+    """The replaced design (`starks_batch_inv_runs`) over x on the current
+    stream, at its former default run (n / 2^15 rounded up), timed beside
+    the scan. It counts no launch: no main path runs it."""
+    import torch
+    from starks_tpu_torch.ops import _build
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    rc = _build.load().starks_batch_inv_runs(
+        x.data_ptr(), out.data_ptr(), n, -(-n // INV_OLD_THREADS),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc == 0, f"starks_batch_inv_runs returned {rc}")
+    return out
 
 
 def phase_batch_inv(rows, device):
-    """Phase 2, batch inversion (`batch_inv_kernel`, which the set-ups
-    run): at each of INV_SIZES, on seeded random elements with zeros
-    scattered (one in 50) and the structured values up front (0, 1,
-    p - 1, p - 2, ...), the kernel at run length 1 and its default
-    (`plimbs.batch_inv_run`) equals its plain version exactly, which
-    equals hostfield.multi_inv on Python ints up to INV_INTS elements;
-    then its device time at each size of INV_TIMED for each run length
-    of INV_RUNS, beside the function's bound (one for all run lengths;
-    inputs warm in L2, as the set-up's product leaves them), the fastest
-    run beside the default, and the row of the `kernels` line (2^19 at
-    the default run, with the 2^23 time and the sweep beside it)."""
+    """Phase 2, batch inversion (the block scan of csrc/kernels.cu, which
+    the set-ups run): at each of INV_SIZES, on seeded random elements
+    with zeros scattered (one in 50) and the structured values up front
+    (0, 1, p - 1, p - 2, ...), the scan (`plimbs.batch_inv`) and the
+    replaced design (one thread per run, `field::inv`) each equal the
+    plain version exactly, which equals hostfield.multi_inv on Python
+    ints up to INV_INTS elements; at each size of INV_TIMED, and at one
+    element (the inverse alone), their device times in turns (replaced,
+    scan, scan, replaced; inputs warm in L2, as the set-up's product
+    leaves them) beside the function's bound and the scan's chain floor
+    (its critical path's dependent products, at 2 t_mul + 5 t_add clocks
+    each, t_mul and t_add as phase_trace timed them, at the maximum SM
+    clock); then the row of the `kernels` line (2^19, with every size
+    beside it). Phase 7 counts the scan's CUDA launches per call
+    (`count_inv_launches`)."""
     import torch
     from starks_tpu_torch.ops import plimbs
     from starks_tpu_torch.utils import hostfield
     from starks_tpu_torch.utils.conversions import tensor_to_ints
     sms, mhz = card_clocks(device)
     ops_per_s = INT_OPS_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    designs = {"replaced": inv_replaced,
+               "scan": plimbs.batch_inv}
     gen = torch.Generator().manual_seed(SEED + 20)
     edge = edge_elems(device)
     arrays, err = {}, 0
@@ -846,75 +922,81 @@ def phase_batch_inv(rows, device):
         x[torch.randperm(n, generator=gen)[:n // 50].to(device)] = 0
         arrays[n] = x
         want = plimbs.batch_inv_plain(x)
-        for run in (1, plimbs.batch_inv_run(n)):
-            got = plimbs.batch_inv(x, run)
+        for name, run in designs.items():
+            got = run(x)
             err = max(err, int((got.to(torch.int64)
                                 - want.to(torch.int64)).abs().max()))
             check(torch.equal(got, want),
-                  f"batch_inv at {n} elements, run {run}, disagrees with "
-                  f"its plain version")
+                  f"batch_inv ({name}) at {n} elements disagrees with its "
+                  f"plain version")
         if n <= INV_INTS:
             check(tensor_to_ints(want)
                   == hostfield.multi_inv(tensor_to_ints(x)),
                   f"batch_inv_plain at {n} elements disagrees with "
                   f"hostfield.multi_inv")
-    print(f"  batch_inv   equal to plain at {len(INV_SIZES)} sizes "
-          f"({', '.join(map(str, INV_SIZES))}) at run 1 and the default "
-          f"run (max_abs_err {err}), plain equal to "
-          f"hostfield.multi_inv up to {INV_INTS}", flush=True)
+    print(f"  batch_inv   the scan and the replaced design equal to plain "
+          f"at {len(INV_SIZES)} sizes "
+          f"({', '.join(map(str, INV_SIZES))}) (max_abs_err {err}), plain "
+          f"equal to hostfield.multi_inv up to {INV_INTS}", flush=True)
 
-    def bound(x):
-        bytes_ms = 2 * ELEM * x.shape[0] / HBM_BYTES_PER_S * 1e3
-        ops_ms = inv_ops(x) / ops_per_s * 1e3
-        return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                       else "operations")
-
-    timed, sweep = {}, {}
-    for n in INV_TIMED:
+    chain = rows["mimc_trace"]["chain_floor"]
+    product_clocks = 2 * chain["t_mul_clocks"] + 5 * chain["t_add_clocks"]
+    timed = {}
+    for n in (1,) + INV_TIMED:
         x = arrays[n]
-        b, by = bound(x)
-        default = plimbs.batch_inv_run(n)
-        for run in INV_RUNS:
-            dev, per_call = kernel_times(lambda: plimbs.batch_inv(x, run),
-                                         device, reps=10)
-            timed[n, run] = {"ms": dev, "call_ms": per_call, "bound_ms": b,
-                             "bound_by": by}
-        ms = {run: timed[n, run]["ms"] for run in INV_RUNS}
-        fastest = min(ms, key=ms.get)
-        sweep[n] = {"default_run": default, "fastest_run": fastest,
-                    "bound_ms": b, "bound_by": by, "ms_by_run": ms}
-        print(f"    {n} elements, bound {b:.6f} ms ({by}); device ms by "
-              f"run: " + ", ".join(f"{r} {t:.6f}" for r, t in ms.items())
-              + f"; fastest run {fastest}, default run {default}"
-              + (f" ({timed[n, default]['ms']:.6f} ms)" if default in ms
-                 else " (not swept)"), flush=True)
+        bytes_ms = 2 * ELEM * n / HBM_BYTES_PER_S * 1e3
+        ops_ms = inv_ops(x) / ops_per_s * 1e3
+        shape = plimbs.batch_inv_shape(n)
+        levels = plimbs.batch_inv_levels(n, *shape)
+        products = inv_chain_products(n)
+        ms = {name: [] for name in designs}
+        order = list(designs) + list(designs)[::-1]
+        for name in order:
+            ms[name].append(kernel_times(lambda: designs[name](x), device,
+                                         reps=10)[0])
+        ms = {name: sum(v) / len(v) for name, v in ms.items()}
+        entry = {"ms": ms["scan"], "replaced_ms": ms["replaced"],
+                 "replaced_run": -(-n // INV_OLD_THREADS),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "chain_products": products,
+                 "chain_floor_ms": products * product_clocks / (mhz * 1e3),
+                 "threads": shape[0], "k": shape[1], "k_up": shape[2],
+                 "levels": levels, "cuda_launches": None}
+        timed[n] = entry
+        print(f"    {n} elements (tile {shape[0]} x {shape[1]}, levels "
+              f"{levels}): scan {ms['scan']:.6f} ms, replaced (run "
+              f"{entry['replaced_run']}) {ms['replaced']:.6f} ms; bound "
+              f"{entry['bound_ms']:.6f} ms ({entry['bound_by']}, "
+              f"{entry['bound_ms'] / ms['scan']:.2%}); chain floor "
+              f"{entry['chain_floor_ms']:.6f} ms ({products} products, "
+              f"{entry['chain_floor_ms'] / ms['scan']:.2%})", flush=True)
     n = BIG_STEPS * EXT
-    run, x = plimbs.batch_inv_run(n), arrays[n]
-    big = dict(timed[CONFIG4_STEPS * EXT,
-                     plimbs.batch_inv_run(CONFIG4_STEPS * EXT)])
+    x, big = arrays[n], arrays[CONFIG4_STEPS * EXT]
+    dev, per_call = kernel_times(lambda: plimbs.batch_inv(x), device,
+                                 reps=10)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    plimbs.batch_inv_plain(arrays[CONFIG4_STEPS * EXT])
+    plimbs.batch_inv_plain(big)
     torch.cuda.synchronize(device)
-    big["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    timed[CONFIG4_STEPS * EXT]["plain_ms"] = (time.perf_counter() - t0) * 1e3
     row = {"name": "batch_inv", "route": "cuda", "source": SRC,
            "replaces": REPLACES["batch_inv"], "launches": 0,
-           "max_abs_err": err, "ms": timed[n, run]["ms"],
-           "call_ms": timed[n, run]["call_ms"],
+           "max_abs_err": err, "ms": timed[n]["ms"], "call_ms": per_call,
            "plain_ms": call_ms(lambda: plimbs.batch_inv_plain(x), device, 3),
-           "bound_ms": timed[n, run]["bound_ms"],
-           "bound_by": timed[n, run]["bound_by"], "library_ms": None,
-           "l2": "warm", "run": run, "elements": n,
-           f"at {CONFIG4_STEPS * EXT}": big, "sweep": sweep}
-    big["run"] = plimbs.batch_inv_run(CONFIG4_STEPS * EXT)
+           "bound_ms": timed[n]["bound_ms"], "bound_by": timed[n]["bound_by"],
+           "library_ms": None, "l2": "warm", "elements": n,
+           "tile": {k: timed[n][k] for k in ("threads", "k", "k_up")},
+           "cuda_launches_per_call": None,
+           "chain_floor_ms": timed[n]["chain_floor_ms"],
+           "replaced_ms": timed[n]["replaced_ms"], "by_size": timed}
     rows["batch_inv"] = row
-    print(f"  batch_inv   {n} elements, run {run}: device {row['ms']:.6f} ms,"
-          f" plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.6f} ms"
-          f" ({row['bound_ms'] / row['ms']:.1%});"
-          f" {CONFIG4_STEPS * EXT} elements, run {big['run']}: device "
-          f"{big['ms']:.6f} ms, "
-          f"plain {big['plain_ms']:.3f} ms (one call), bound "
-          f"{big['bound_ms']:.6f} ms ({big['bound_ms'] / big['ms']:.1%})",
+    print(f"  batch_inv   {n} elements: device {row['ms']:.6f} ms (one more "
+          f"timing: {dev:.6f}), per call {per_call:.6f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_ms'] / row['ms']:.1%}), chain floor "
+          f"{row['chain_floor_ms']:.6f} ms; {CONFIG4_STEPS * EXT} elements: "
+          f"plain {timed[CONFIG4_STEPS * EXT]['plain_ms']:.3f} ms (one call)",
           flush=True)
 
 
@@ -939,6 +1021,11 @@ def setup_timed(build, device):
     called = {s.name: s.calls for s in spies if s.calls}
     check(not called, f"a set-up built a table on the host: {called}")
     return su, seconds, launches
+
+
+def print_setup_split(what, split):
+    print(f"  {what}, stages (ms): " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in split.items()), flush=True)
 
 
 def print_setup(what, seconds, launches):
@@ -1966,12 +2053,14 @@ def shard_rank(rank, steps):
     collective timed. Returns what the parent checks and prints."""
     import torch
     import starks_tpu_torch as stt
-    from starks_tpu_torch.ops import plimbs
+    from starks_tpu_torch import prover
     from starks_tpu_torch.parallel import mesh as pmesh
     mesh = pmesh.make_mesh()
+    split = {}
     t0 = time.perf_counter()
-    _, first_launches = counted(lambda: stt.mk_mimc_proof(INP, steps, CONSTS,
-                                                          mesh=mesh))
+    _, setup_launches = counted(lambda: prover._ShardedSetup.get(
+        steps, stt.REFERENCE, mesh, timings=split))
+    stt.mk_mimc_proof(INP, steps, CONSTS, mesh=mesh)
     first_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(mesh.device)
     mesh.reset_counts()
@@ -1980,7 +2069,8 @@ def shard_rank(rank, steps):
     proof, launches = counted(lambda: stt.mk_mimc_proof(
         INP, steps, CONSTS, mesh=mesh, timings=steady))
     return {"proof": proof, "first_s": first_s, "steady": steady,
-            "launches": launches, "first_launches": first_launches,
+            "launches": launches, "setup_launches": setup_launches,
+            "setup_split": split,
             "counts": mesh.counts,
             "bytes": mesh.bytes, "seconds": mesh.seconds,
             "transport": mesh.transport, "device": str(mesh.device),
@@ -2034,12 +2124,13 @@ def phase_sharded(steps, want, launches):
               and r["launches"]["dit_pass"] == 0
               and r["launches"]["fold4"] == rounds,
               f"rank {rank}: launches {r['launches']}")
-        setup = {k: r["first_launches"][k] - v
-                 for k, v in r["launches"].items()
-                 if r["first_launches"][k] != v}
+        setup = {k: v for k, v in r["setup_launches"].items() if v}
         check(setup == {"sub": 2, "mul": 1, "batch_inv": 1},
               f"rank {rank}: its set-up launched {setup}, expected its 1/Z2 "
               f"on the card (sub 2, mul 1, batch_inv 1)")
+        if rank == 0:
+            print_setup_split(f"MiMC {steps} set-up, rank 0 of {SHARDS}",
+                              r["setup_split"])
         print(f"  rank {rank} on {r['device']}: first call (with set-up, "
               f"its 1/Z2 rows on the card) {r['first_s']:.3f} s, peak memory "
               f"{r['peak'] / 2 ** 30:.3f} GiB; steady stages (ms): "
@@ -2070,13 +2161,17 @@ def phase_config4(rows, device, proof16, launches):
     torch.cuda.empty_cache()
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
+    split = {}
     su, setup_s, launches[MIMC4 + SETUP] = setup_timed(
-        lambda: prover._FusedSetup.get(CONFIG4_STEPS, stt.REFERENCE, device),
-        device)
+        lambda: prover._FusedSetup.get(CONFIG4_STEPS, stt.REFERENCE, device,
+                                       timings=split), device)
     want = {"sub": 2, "mul": 1, "batch_inv": 1}
     got = {k: v for k, v in launches[MIMC4 + SETUP].items() if v}
     check(got == want, f"{MIMC4} set-up launches {got}, expected {want}")
+    check(split.get("batch inverse") is not None,
+          f"{MIMC4} set-up: no stage times (set-up already built?)")
     print_setup(MIMC4, setup_s, launches[MIMC4 + SETUP])
+    print_setup_split(f"{MIMC4} set-up, one card", split)
     last = pow(su.G2, (CONFIG4_STEPS - 1) * EXT, MODULUS)
     t0 = time.perf_counter()
     host = native.inv_vanishing2(su.plan.xs_big.cpu().numpy(), 1, last)
@@ -2209,12 +2304,15 @@ def count_syncs(run, device) -> int:
 # thread, the elementwise frames' op.
 FIELD_KERNEL = re.compile(
     r"^(?:void )?(?:_Z\d+)?(dif_pass|dit_pass|stream_map|flat_map|binary|db"
-    r"|l|fold4|mimc_trace|batch_inv)_kernel"
-    r"(?:I(?:Li(\d+)E|\d+(\w+?))Ev|<([\w, ]+)>)?(?:\(|P|$)")
+    r"|l|fold4|mimc_trace|batch_inv_(?:up|top|down|runs))_kernel"
+    r"(?:I(?:Li(\d+)E|\d+(\w+?)|Li(\d+E\d+\w+?))Ev|<([\w, ]+)>)?"
+    r"(?:\(|P|$)")
 # The wrapper (and LAUNCHES key) each kernel or template op serves.
 KERNEL_KEYS = {"db": "db_map", "l": "l_map", "ScaleOp": "scale",
                "ScaleAccOp": "scale", "CubeOp": "cube", "MulOp": "mul",
-               "AddOp": "add", "SubOp": "sub"}
+               "AddOp": "add", "SubOp": "sub", "batch_inv_up": "batch_inv",
+               "batch_inv_top": "batch_inv", "batch_inv_down": "batch_inv",
+               "batch_inv_runs": "batch_inv"}
 # A profiler session drops its first few launches of the port's kernels
 # (on an H100 with torch 2.11, more as sessions accumulate in a
 # process), while it keeps torch's kernels around them. So each profile
@@ -2232,19 +2330,21 @@ PROFILE_TRIES = 3
 def kernel_label(name) -> str:
     """A field kernel's short name, with its template arguments if any
     (dit_pass<2>, stream_map<CubeOp>, mimc_trace<SharedConsts,
-    RedundantRound>); other names as they are."""
+    RedundantRound>, batch_inv_up<8>); other names as
+    they are."""
     m = FIELD_KERNEL.match(name)
     if not m:
         return name
-    arg = m.group(2) or (m.group(3) and re.sub(r"\d+", ", ", m.group(3))
-                         ) or m.group(4)
+    arg = (m.group(2) or (m.group(3) and re.sub(r"\d+", ", ", m.group(3)))
+           or (m.group(4) and re.sub(r"E\d+", ", ", m.group(4)))
+           or m.group(5))
     return f"{m.group(1)}<{arg}>" if arg else m.group(1)
 
 
 def kernel_key(m) -> str:
     """The wrapper (LAUNCHES key) a FIELD_KERNEL match belongs to."""
     if m.group(1) in ("stream_map", "flat_map", "binary"):
-        return KERNEL_KEYS[m.group(3) or m.group(4)]
+        return KERNEL_KEYS[m.group(3) or m.group(5)]
     return KERNEL_KEYS.get(m.group(1), m.group(1))
 
 
@@ -2291,6 +2391,76 @@ def profiled_events(run, device):
                     and evt.name() != PROFILE_RANGE)
     inside = [evt for evt in events if evt[0] >= start]
     return inside, events[:len(events) - len(inside)], counts
+
+
+def count_inv_launches(rows, device):
+    """The CUDA kernels one `plimbs.batch_inv` call launches at one
+    element and at each size of INV_TIMED, as torch.profiler lists them
+    (FIELD_KERNEL's batch_inv_up/top/down), in one session after the
+    primer, each call inside a `record_function` range of its own: the
+    kernels that start between a range's start and the next's belong to
+    its call. Each count must be 2L - 1 for the L levels of
+    `plimbs.batch_inv_levels`. More is a fault of the scan; fewer, in
+    every one of PROFILE_TRIES sessions, leaves the count not measured
+    (the profiler loses launches; a scan that skipped a kernel would
+    fail phase 2's values). The counts, and each kernel's device time
+    under the profiler, go into the batch_inv row."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from starks_tpu_torch.ops import plimbs
+    gen = torch.Generator().manual_seed(SEED + 21)
+    sizes = (1,) + INV_TIMED
+    want = {n: 2 * len(plimbs.batch_inv_levels(
+        n, *plimbs.batch_inv_shape(n))) - 1 for n in sizes}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        arrays = {n: rand_elems(n, gen, device) for n in sizes}
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prime_profiler(device)
+            for n in sizes:
+                with record_function(f"chip_smoke: batch_inv {n}"):
+                    plimbs.batch_inv(arrays[n])
+                    torch.cuda.synchronize(device)
+        raw = list(prof.profiler.kineto_results.events())
+        starts = sorted((evt.start_ns(), int(evt.name().split()[-1]))
+                        for evt in raw
+                        if evt.name().startswith("chip_smoke: batch_inv ")
+                        and evt.device_type()
+                        == torch.autograd.DeviceType.CPU)
+        got = dict.fromkeys(sizes, 0)
+        kernel_us = {n: {} for n in sizes}
+        for evt in raw:
+            m = FIELD_KERNEL.match(evt.name())
+            if (evt.device_type() != torch.autograd.DeviceType.CUDA
+                    or not m or kernel_key(m) != "batch_inv"):
+                continue
+            owner = [n for t, n in starts if t <= evt.start_ns()]
+            if owner:
+                got[owner[-1]] += 1
+                us = kernel_us[owner[-1]]
+                label = kernel_label(evt.name())
+                us[label] = us.get(label, 0.0) + evt.duration_ns() / 1e3
+        check(all(got[n] <= want[n] for n in sizes),
+              f"batch_inv launched more CUDA kernels a call than its levels "
+              f"need: {got} against {want}")
+        if got == want:
+            break
+        print(f"  batch_inv CUDA launches, profiler session {attempt} of "
+              f"{PROFILE_TRIES}: {got}, short of {want}", flush=True)
+    else:
+        got = dict.fromkeys(sizes)
+    row = rows["batch_inv"]
+    for n in INV_TIMED:
+        row["by_size"][n]["cuda_launches"] = got[n]
+        row["by_size"][n]["profiled_kernel_us"] = kernel_us[n]
+    row["cuda_launches_per_call"] = got[row["elements"]]
+    print("  batch_inv CUDA launches a call, profiler (levels' 2L - 1): "
+          + ", ".join(f"{n} elements {got[n]} ({want[n]})" for n in sizes)
+          + ("" if got[1] is not None else "; not measured"), flush=True)
+    for n in sizes:
+        print(f"    {n} elements, device us under the profiler: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in kernel_us[n].items()), flush=True)
 
 
 def profile_proof(run, device, steady_s):
@@ -2399,8 +2569,66 @@ def announce(title):
     print(f"{title} [{time.perf_counter() - STARTED:.1f} s]", flush=True)
 
 
+def setups_main(root) -> int:
+    """`--setups [ROOT]` (the module docstring): the set-ups of the port
+    in ROOT, timed and profiled."""
+    import cProfile
+    import pstats
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(root).resolve()))
+    import starks_tpu_torch as stt
+    from starks_tpu_torch import prover
+    from starks_tpu_torch.air import _FusedAIRSetup
+    from starks_tpu_torch.models import fib_square as fib
+    from starks_tpu_torch.models.mimc import mimc_air
+    device = torch.device("cuda", 0)
+    print(f"set-ups of {Path(stt.__file__).parent}; {card_line()}",
+          flush=True)
+    air = fib.fib_square_air()
+    stt.prove_air(air, [1, 1], AIR_CHECK_STEPS, device=device)
+    builds = {f"fib-square {SMALL_STEPS}": lambda: _FusedAIRSetup(
+                  air, SMALL_STEPS, stt.REFERENCE, device),
+              f"fib-square {BIG_STEPS}": lambda: _FusedAIRSetup(
+                  air, BIG_STEPS, stt.REFERENCE, device),
+              f"MiMC-as-AIR {SMALL_STEPS}": lambda: _FusedAIRSetup(
+                  mimc_air(AIR_CONSTS), SMALL_STEPS, stt.REFERENCE, device),
+              f"MiMC {CONFIG4_STEPS}": lambda: prover._FusedSetup(
+                  CONFIG4_STEPS, stt.REFERENCE, device)}
+    for name, build in builds.items():
+        seconds = []
+        for _ in range(SETUP_REPS):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            build()
+            torch.cuda.synchronize(device)
+            seconds.append(time.perf_counter() - t0)
+        print(f"  {name} set-up (s): " + ", ".join(f"{s:.5f}"
+                                                    for s in seconds),
+              flush=True)
+    name = f"fib-square {BIG_STEPS}"
+    host = cProfile.Profile()
+    host.enable()
+    builds[name]()
+    torch.cuda.synchronize(device)
+    host.disable()
+    print(f"  {name} set-up under cProfile:", flush=True)
+    pstats.Stats(host, stream=sys.stdout).sort_stats("tottime").print_stats(
+        SETUP_PROFILE_ROWS)
+    events, _, counts = profiled_events(builds[name], device)
+    print(f"  {name} set-up under torch.profiler: {len(events)} device "
+          f"events, {sum(us for _, us, _ in events) / 1e3:.3f} ms on the "
+          f"card; launches " + ", ".join(f"{k} {v}" for k, v in
+                                         counts.items() if v), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--setups"]:
+        return setups_main(sys.argv[2] if len(sys.argv) > 2 else ".")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2467,6 +2695,7 @@ def main() -> int:
     announce("phase 7: profiled proofs")
     phase_profiles(device, mimc_steady_s, air_steady_s, chunk_steady_s,
                    mimc4_steady_s, air_chunk_steady_s)
+    count_inv_launches(rows, device)
 
     announce("phase 8: launches on the main paths")
     phase_launches(rows, launches)

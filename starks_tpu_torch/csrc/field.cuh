@@ -5,8 +5,9 @@
 // element is 8 little-endian 32-bit words of its canonical value; every
 // function takes canonical inputs and returns a canonical result, so any
 // correct reduction gives the TPU kernels' bits. The exceptions are the
-// MiMC trace's lazy forms (fold_lazy, the *_chain functions,
-// mimc_round): any value below 2^256, which canonical() reduces. The TPU's 16x16-bit
+// lazy forms of the MiMC trace and the batch inverse (fold_lazy,
+// mul_lazy, the *_chain functions, mimc_round): any value below 2^256,
+// which canonical() reduces. The TPU's 16x16-bit
 // column scheme was shaped by its 8x128 vector tiles; here a product is
 // an 8x8 schoolbook of 32x32->64-bit multiply-adds.
 //
@@ -591,7 +592,8 @@ FIELD_FN uint32_t p_minus_2_word(int i) {
 // The Fermat inverse x^(p-2) mod p, with inv(0) = 0: square and multiply
 // from the top bit (bit 255, taken by starting from x) down, 255
 // squarings and 248 products. Not unrolled: each step's bit is read from
-// p_minus_2_word, the same for every thread.
+// p_minus_2_word, the same for every thread. The batch inverse runs
+// inv_chain (below), the same value on a shorter chain.
 FIELD_FN Fe inv(const Fe& x) {
   Fe acc = x;
 #pragma unroll 1
@@ -600,6 +602,73 @@ FIELD_FN Fe inv(const Fe& x) {
     if ((p_minus_2_word(i >> 5) >> (i & 31)) & 1u) acc = mul(acc, x);
   }
   return acc;
+}
+
+#ifdef __CUDA_ARCH__
+// w = a * b: mul_wide_chain with no addend (row 0 is written, not added).
+__device__ __forceinline__ void mul_wide_chain0(const Fe& a, const Fe& b,
+                                                uint32_t w[16]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = (uint64_t)a.w[j] * b.w[i];
+    if (i == 0) {
+      row_sum<8>(t, w);
+    } else {
+      uint32_t u[9];
+      row_sum<8>(t, u);
+      row_acc<8>(w + i, u);
+    }
+  }
+}
+#endif
+
+// a * b mod p as a value below 2^256, not always canonical, for any a
+// and b below 2^256: mul without its conditional subtract (the lazy
+// fold), for a product that feeds only further products.
+FIELD_FN Fe mul_lazy(const Fe& a, const Fe& b) {
+  uint32_t w[16];
+#ifdef __CUDA_ARCH__
+  mul_wide_dev(a, b, w);
+  return fold_lazy_chain(w);
+#else
+  mul_wide(a, b, w);
+  return fold_lazy(w);
+#endif
+}
+
+// a^2 and a * b mod p as values below 2^256, not always canonical, for
+// any a and b below 2^256: the chain forms of sqr and mul (products with
+// no addend, lazy folds, no conditional subtract), for one thread's
+// dependent chain.
+FIELD_FN Fe sqr_chain(const Fe& a) {
+  uint32_t w[16];
+#ifdef __CUDA_ARCH__
+  sqr_wide_chain(a, w);
+  return fold_lazy_chain(w);
+#else
+  sqr_wide(a, w);
+  return fold_lazy(w);
+#endif
+}
+
+FIELD_FN Fe mul_chain(const Fe& a, const Fe& b) {
+  uint32_t w[16];
+#ifdef __CUDA_ARCH__
+  mul_wide_chain0(a, b, w);
+  return fold_lazy_chain(w);
+#else
+  mul_wide(a, b, w);
+  return fold_lazy(w);
+#endif
+}
+
+// x^(2^k) * y in lazy form: k squarings, then one product.
+FIELD_FN Fe sqr_n_mul(Fe x, int k, const Fe& y) {
+#pragma unroll 1
+  for (int i = 0; i < k; ++i) x = sqr_chain(x);
+  return mul_chain(x, y);
 }
 
 FIELD_FN bool is_zero(const Fe& x) {
@@ -617,6 +686,41 @@ FIELD_FN Fe canonical(Fe x) {
   reduce_once(x.w, 0);
 #endif
   return x;
+}
+
+// The Fermat inverse x^(p-2) mod p by an addition chain, with
+// inv_chain(0) = 0: the value of inv, on a chain of 255 squarings and 17
+// products where inv takes 248 products. With e_k = x^(2^k - 1), e_32
+// comes from e_1, e_2, e_4, e_8, e_16 (31 squarings, 5 products); p - 2
+// is [0xFFFFFFFF, 0xFFFFFEA0, 0xFFFFFFFF x 6] (low word first), so its
+// top six words are e_32 then five blocks of 32 ones shifted in with one
+// product each; word 1 is 23 ones (16 + 4 + 2 + 1), then 0101 and 00000;
+// word 0 is 32 ones. Every step is a lazy chain form; the result is made
+// canonical once. Not inlined on the card: it runs on one thread once a
+// call (the block scan's top), and its 13 loops stay one copy.
+#ifdef __CUDACC__
+static __host__ __device__ __noinline__
+#else
+static inline
+#endif
+Fe inv_chain(const Fe& x) {
+  const Fe e1 = x;
+  const Fe e2 = sqr_n_mul(e1, 1, e1);
+  const Fe e4 = sqr_n_mul(e2, 2, e2);
+  const Fe e8 = sqr_n_mul(e4, 4, e4);
+  const Fe e16 = sqr_n_mul(e8, 8, e8);
+  const Fe e32 = sqr_n_mul(e16, 16, e16);   // word 7
+  Fe acc = e32;
+#pragma unroll 1
+  for (int word = 6; word >= 2; --word) acc = sqr_n_mul(acc, 32, e32);
+  acc = sqr_n_mul(acc, 16, e16);            // word 1: 23 ones ...
+  acc = sqr_n_mul(acc, 4, e4);
+  acc = sqr_n_mul(acc, 2, e2);
+  acc = sqr_n_mul(acc, 1, e1);
+  acc = sqr_n_mul(acc, 2, e1);              // ... 01 ...
+  acc = sqr_n_mul(acc, 2, e1);              // ... 01, then 00000
+  acc = sqr_n_mul(acc, 5 + 32, e32);        // and word 0
+  return canonical(acc);
 }
 
 // One MiMC round in redundant form: x^3 + k mod p as a value below 2^256,

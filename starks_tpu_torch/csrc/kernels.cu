@@ -23,7 +23,8 @@
 // steps and 16 claims.
 //
 // Each kernel's bound (bytes or integer multiply-adds) is noted in
-// ops/plimbs.py; the simple form here is a first, correct version.
+// ops/plimbs.py. The batch inverse is a block scan over several
+// launches (its note is below).
 //
 // Built by nvcc into a shared library with a plain C interface (loaded
 // with ctypes by ops/_build.py). Each entry point launches on the given
@@ -745,19 +746,370 @@ int mimc_trace_launch(const Fe* x0, const Fe* consts, uint32_t n_k, Fe* out,
 
 // Batch inversion: out[i] = 1 / x[i], and 0 where x[i] is 0 (the JAX
 // package's limbs.batch_inv and fused.batch_inv_scan, XLA scans with no
-// Pallas kernel). One thread per run of `run` consecutive elements, the
-// last run short: a forward pass writes each exclusive prefix product
-// of the run to out and carries the run's product (a zero counts as 1),
-// one Fermat inverse of that product, then a backward pass, out[i] *=
-// acc and acc *= x[i]. `run` changes no result: run = 1 is the
-// elementwise inverse.
-KERNEL batch_inv_kernel(const Fe* __restrict__ x, Fe* __restrict__ out,
-                        uint32_t n, uint32_t run) {
+// Pallas kernel), as a block scan with one Fermat inverse in all.
+// Montgomery's trick needs the product of every element (a zero counts
+// as 1) and, for each element, the product of all the others; field
+// products commute, so any partition of the elements into groups serves.
+//
+// A level of m elements is cut into blocks of T threads (a power of two,
+// 32 to kInvThreads) and k elements a thread: thread j of block b holds
+// the group of elements (b k + i) T + j, i < k (inv_index), so a warp's
+// loads and stores are 32 consecutive 32-byte elements. The up-sweep
+// kernel (batch_inv_up_kernel) takes each thread's group product, reduces
+// the block's T products on a binary tree in shared memory and writes the
+// block's total: the totals are the next level's elements, and levels
+// follow until one block holds them all. That block's kernel
+// (batch_inv_top_kernel) reduces the same way, one thread inverts the
+// total (field::inv_chain, the only serial chain left: 255 squarings and
+// 17 products), and the tree gives each thread the inverse of its group
+// product, a node's inverse being its parent's times its sibling. A
+// thread's backward pass over its group then writes 1 / x = acc *
+// (exclusive prefix) and steps acc *= x. The down-sweep kernel
+// (batch_inv_down_kernel) does the same for a lower level, its block
+// totals' inverses read from the level above. 2L - 1 launches for L
+// levels. Only the outputs are canonical: the group products, prefixes,
+// totals and tree nodes are lazy (field::mul_lazy in the group passes,
+// the chain forms on the trees).
+//
+// Bound: the function needs 3 modmuls a nonzero element and 64 bytes
+// (x read, out written), and its inverse; the operations bound it. The
+// up-sweep writes each element's exclusive prefix to out and the
+// down-sweep reads it back, and takes a group's product again as its
+// last prefix times its last element: 3 modmuls and 128 bytes an element
+// (x read twice, out written twice and read once). Recomputing the
+// prefixes in registers instead (4 modmuls and 96 bytes) measured slower
+// at 2^23 elements (PERF.md). On the card each kernel is bound by the
+// issue rate of its modmuls' integer instructions and by its bytes in
+// turn, not both at once; a block's tree leaves most of its warps idle,
+// which the blocks resident beside it fill (kInvMinBlocks). Below about
+// 2^21 elements the inverse's chain and the levels' dependent products
+// set the time.
+constexpr uint32_t kInvThreads = 256;
+// Elements a thread holds: 1, 2, 4, 8 or 16 (the kernels are
+// instantiated for each).
+constexpr uint32_t kInvMaxGroup = 16;
+
+FIELD_FN uint32_t inv_index(uint32_t b, uint32_t j, uint32_t i,
+                            uint32_t threads, uint32_t k) {
+  return (b * k + i) * threads + j;
+}
+
+FIELD_FN Fe field_one() {
+  Fe one{};
+  one.w[0] = 1;
+  return one;
+}
+
+// The blocks an SM must hold (__launch_bounds__): the kernels keep
+// nothing per element in registers, so their group loops stay rolled and
+// 4 blocks of 256 fit an SM (64 registers): a block's tree, whose levels
+// leave most of its warps idle, then overlaps other blocks' group passes.
+constexpr int kInvMinBlocks = 4;
+
+// Thread j's forward pass over its group in block b of a level of m
+// elements (a[m]): the product of its nonzero elements, each element's
+// exclusive prefix product written to pre at the element's index.
+template <int K>
+FIELD_FN Fe group_forward(const Fe* __restrict__ a, uint32_t m, uint32_t b,
+                          uint32_t j, uint32_t threads,
+                          Fe* __restrict__ pre) {
+  Fe acc = field_one();
+#pragma unroll 1
+  for (int i = 0; i < K; ++i) {
+    const uint32_t e = inv_index(b, j, i, threads, K);
+    if (e >= m) break;
+    const Fe v = a[e];
+    pre[e] = acc;
+    if (!field::is_zero(v)) acc = field::mul_lazy(acc, v);
+  }
+  return acc;
+}
+
+// A group's product again from its stored prefixes: the last element's
+// prefix times that element (a zero counts as 1); 1 for an empty group.
+template <int K>
+FIELD_FN Fe group_product_stored(const Fe* __restrict__ a, uint32_t m,
+                                 uint32_t b, uint32_t j, uint32_t threads,
+                                 const Fe* __restrict__ pre) {
+  const uint32_t first = inv_index(b, j, 0, threads, K);
+  if (first >= m) return field_one();
+  const uint32_t held = (m - 1 - first) / threads + 1;
+  const uint32_t e = inv_index(b, j, (held < K ? held : K) - 1, threads, K);
+  const Fe v = a[e], q = pre[e];
+  return field::is_zero(v) ? q : field::mul_lazy(q, v);
+}
+
+// Thread j's backward pass, acc the inverse of its group's product:
+// out[e] = acc * prefix (the prefix read from out itself), then
+// acc *= x[e], from the last element down (out[e] = 0 where x[e] is 0).
+template <int K>
+FIELD_FN void group_backward(const Fe* __restrict__ a, uint32_t m, uint32_t b,
+                             uint32_t j, uint32_t threads, Fe acc,
+                             Fe* __restrict__ out) {
+#pragma unroll 1
+  for (int i = K - 1; i >= 0; --i) {
+    const uint32_t e = inv_index(b, j, i, threads, K);
+    if (e >= m) continue;
+    const Fe v = a[e];
+    if (field::is_zero(v)) {
+      out[e] = v;
+      continue;
+    }
+    out[e] = field::mul(acc, out[e]);
+    if (i) acc = field::mul_lazy(acc, v);
+  }
+}
+
+// The binary tree over a block's T group products in shared memory:
+// level s (T >> s nodes) at tree_offset(T, s), the root at 2T - 2. Up,
+// step s makes node j of level s + 1 from nodes 2j and 2j + 1 of level
+// s; down, with the root replaced by its inverse, step s turns nodes
+// 2j and 2j + 1 of level s into their inverses (each its parent's
+// inverse times its sibling), so level 0 ends holding each group
+// product's inverse. Steps of one level run on threads j < T >> (s+1).
+FIELD_FN uint32_t tree_offset(uint32_t threads, uint32_t s) {
+  return 2 * threads - ((2 * threads) >> s);
+}
+
+FIELD_FN void tree_up(Fe* node, uint32_t threads, uint32_t s, uint32_t j) {
+  const Fe* lo = node + tree_offset(threads, s);
+  node[tree_offset(threads, s + 1) + j] = field::mul_chain(lo[2 * j],
+                                                           lo[2 * j + 1]);
+}
+
+FIELD_FN void tree_down(Fe* node, uint32_t threads, uint32_t s, uint32_t j) {
+  Fe* lo = node + tree_offset(threads, s);
+  const Fe inv = node[tree_offset(threads, s + 1) + j];
+  const Fe l = lo[2 * j], r = lo[2 * j + 1];
+  lo[2 * j] = field::mul_chain(inv, r);
+  lo[2 * j + 1] = field::mul_chain(inv, l);
+}
+
+FIELD_FN uint32_t log2_of(uint32_t v) {
+  uint32_t s = 0;
+  while ((1u << s) < v) ++s;
+  return s;
+}
+
+// The top level's block: T' threads (at most T, at least 32) and k'
+// elements a thread (at most k), the fewest that hold its m elements.
+struct InvShape {
+  uint32_t threads, k;
+};
+
+FIELD_FN InvShape inv_top_shape(uint32_t m, uint32_t threads, uint32_t k) {
+  uint32_t t = 32;
+  while (t < threads && t < m) t *= 2;
+  uint32_t kk = 1;
+  while (kk < k && t * kk < m) kk *= 2;
+  return {t, kk};
+}
+
+#ifdef __CUDACC__
+// The block's tree: its up-sweep, which leaves the root (the block's
+// total) at node[2T - 2], and its down-sweep from the root's inverse.
+__device__ __forceinline__ void block_tree_up(Fe* node, uint32_t threads) {
+  const uint32_t j = threadIdx.x;
+  __syncthreads();
+  for (uint32_t s = 0; (threads >> s) > 1; ++s) {
+    if (j < (threads >> (s + 1))) tree_up(node, threads, s, j);
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void block_tree_down(Fe* node, uint32_t threads) {
+  const uint32_t j = threadIdx.x;
+  __syncthreads();
+  for (uint32_t s = log2_of(threads); s-- > 0;) {
+    if (j < (threads >> (s + 1))) tree_down(node, threads, s, j);
+    __syncthreads();
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kInvThreads, kInvMinBlocks)
+    batch_inv_up_kernel(const Fe* __restrict__ a, uint32_t m,
+                        Fe* __restrict__ pre, Fe* __restrict__ totals) {
+  __shared__ Fe node[2 * kInvThreads];
+  const uint32_t threads = blockDim.x, j = threadIdx.x, b = blockIdx.x;
+  node[j] = group_forward<K>(a, m, b, j, threads, pre);
+  block_tree_up(node, threads);
+  if (j == 0) totals[b] = node[2 * threads - 2];
+}
+
+// inv_totals holds the inverse of each block's total (the level above's
+// output); out held the up-sweep's prefixes and receives this level's
+// inverses.
+template <int K>
+__global__ void __launch_bounds__(kInvThreads, kInvMinBlocks)
+    batch_inv_down_kernel(const Fe* __restrict__ a, uint32_t m,
+                          const Fe* __restrict__ inv_totals,
+                          Fe* __restrict__ out) {
+  __shared__ Fe node[2 * kInvThreads];
+  const uint32_t threads = blockDim.x, j = threadIdx.x, b = blockIdx.x;
+  node[j] = group_product_stored<K>(a, m, b, j, threads, out);
+  block_tree_up(node, threads);
+  if (j == 0) node[2 * threads - 2] = inv_totals[b];
+  block_tree_down(node, threads);
+  group_backward<K>(a, m, b, j, threads, node[j], out);
+}
+
+// One block over the top level's m elements: up, the inverse, down.
+template <int K>
+__global__ void __launch_bounds__(kInvThreads)
+    batch_inv_top_kernel(const Fe* __restrict__ a, uint32_t m,
+                         Fe* __restrict__ out) {
+  __shared__ Fe node[2 * kInvThreads];
+  const uint32_t threads = blockDim.x, j = threadIdx.x;
+  node[j] = group_forward<K>(a, m, 0, j, threads, out);
+  block_tree_up(node, threads);
+  if (j == 0) node[2 * threads - 2] = field::inv_chain(node[2 * threads - 2]);
+  block_tree_down(node, threads);
+  group_backward<K>(a, m, 0, j, threads, node[j], out);
+}
+
+// Launches one kernel of the scan at a group size known only at run
+// time (1, 2, 4, 8 or 16).
+#define INV_DISPATCH(kernel, k, grid, threads, stream, ...)               \
+  do {                                                                    \
+    const cudaStream_t st = (cudaStream_t)(stream);                       \
+    switch (k) {                                                          \
+      case 1: kernel<1><<<grid, threads, 0, st>>>(__VA_ARGS__);           \
+        break;                                                            \
+      case 2: kernel<2><<<grid, threads, 0, st>>>(__VA_ARGS__);           \
+        break;                                                            \
+      case 4: kernel<4><<<grid, threads, 0, st>>>(__VA_ARGS__);           \
+        break;                                                            \
+      case 8: kernel<8><<<grid, threads, 0, st>>>(__VA_ARGS__);           \
+        break;                                                            \
+      default:                                                            \
+        kernel<16><<<grid, threads, 0, st>>>(__VA_ARGS__);                \
+    }                                                                     \
+    const int rc = (int)cudaGetLastError();                               \
+    if (rc) return rc;                                                    \
+  } while (0)
+#else
+// The same kernels on the host: blocks one after another, each phase
+// of a block (group passes, tree steps) for all its threads before the
+// next, as the card's barriers order them.
+template <int K>
+static void inv_block_host(const Fe* a, uint32_t m, uint32_t b,
+                           uint32_t threads, Fe* pre, Fe* totals,
+                           const Fe* inv_total, bool top, Fe* out) {
+  std::vector<Fe> node(2 * threads);
+  for (uint32_t j = 0; j < threads; ++j)
+    node[j] = inv_total ? group_product_stored<K>(a, m, b, j, threads, out)
+                        : group_forward<K>(a, m, b, j, threads, pre);
+  for (uint32_t s = 0; (threads >> s) > 1; ++s)
+    for (uint32_t j = 0; j < (threads >> (s + 1)); ++j)
+      tree_up(node.data(), threads, s, j);
+  Fe& root = node[2 * threads - 2];
+  if (totals) {
+    totals[b] = root;
+    return;
+  }
+  root = top ? field::inv_chain(root) : *inv_total;
+  for (uint32_t s = log2_of(threads); s-- > 0;)
+    for (uint32_t j = 0; j < (threads >> (s + 1)); ++j)
+      tree_down(node.data(), threads, s, j);
+  for (uint32_t j = 0; j < threads; ++j)
+    group_backward<K>(a, m, b, j, threads, node[j], out);
+}
+
+static void inv_level_host(const Fe* a, uint32_t m, uint32_t blocks,
+                           uint32_t threads, uint32_t k, Fe* pre, Fe* totals,
+                           const Fe* inv_totals, bool top, Fe* out) {
+  for (uint32_t b = 0; b < blocks; ++b) {
+    const Fe* it = inv_totals ? inv_totals + b : nullptr;
+    switch (k) {
+      case 1: inv_block_host<1>(a, m, b, threads, pre, totals, it, top,
+                                out); break;
+      case 2: inv_block_host<2>(a, m, b, threads, pre, totals, it, top,
+                                out); break;
+      case 4: inv_block_host<4>(a, m, b, threads, pre, totals, it, top,
+                                out); break;
+      case 8: inv_block_host<8>(a, m, b, threads, pre, totals, it, top,
+                                out); break;
+      default: inv_block_host<16>(a, m, b, threads, pre, totals, it, top,
+                                  out);
+    }
+  }
+}
+#endif
+
+// Most levels a scan takes: each level but the top divides the count by
+// at least 32, and n < 2^31.
+constexpr uint32_t kInvMaxLevels = 8;
+
+// The scan over x[n]: level 0 in blocks of threads x k elements, each
+// level above in blocks of threads x k_up. Level l >= 1 keeps its m_l
+// elements (the totals of level l - 1) and then their inverses in
+// scratch, one after the other. Returns -1 on a bad shape, or when
+// scratch_len is below what the levels need.
+static int batch_inv_scan(const Fe* x, Fe* out, Fe* scratch,
+                          uint32_t scratch_len, uint32_t n, uint32_t threads,
+                          uint32_t k, uint32_t k_up, void* stream) {
+  const auto group_ok = [](uint32_t g) {
+    return g && g <= kInvMaxGroup && !(g & (g - 1));
+  };
+  if (n == 0 || threads < 32 || threads > kInvThreads ||
+      (threads & (threads - 1)) || !group_ok(k) || !group_ok(k_up))
+    return -1;
+  uint32_t m[kInvMaxLevels], levels = 1, need = 0;
+  m[0] = n;
+  for (uint32_t tile = threads * k; m[levels - 1] > tile;
+       tile = threads * k_up) {
+    if (levels == kInvMaxLevels) return -1;
+    m[levels] = (m[levels - 1] + tile - 1) / tile;
+    need += 2 * m[levels++];
+  }
+  if (scratch_len < need) return -1;
+  Fe* in[kInvMaxLevels];    // level l's elements (level 0's only read)
+  Fe* res[kInvMaxLevels];   // and their inverses
+  in[0] = const_cast<Fe*>(x);
+  res[0] = out;
+  for (uint32_t l = 1, off = 0; l < levels; off += 2 * m[l++]) {
+    in[l] = scratch + off;
+    res[l] = scratch + off + m[l];
+  }
+  const auto group = [&](uint32_t l) { return l ? k_up : k; };
+  const uint32_t top = levels - 1;
+  const InvShape ts = inv_top_shape(m[top], threads, group(top));
+#ifdef __CUDACC__
+  for (uint32_t l = 0; l < top; ++l)
+    INV_DISPATCH(batch_inv_up_kernel, group(l), m[l + 1], threads, stream,
+                 in[l], m[l], res[l], in[l + 1]);
+  INV_DISPATCH(batch_inv_top_kernel, ts.k, 1, ts.threads, stream, in[top],
+               m[top], res[top]);
+  for (uint32_t l = top; l-- > 0;)
+    INV_DISPATCH(batch_inv_down_kernel, group(l), m[l + 1], threads, stream,
+                 in[l], m[l], res[l + 1], res[l]);
+#else
+  (void)stream;
+  for (uint32_t l = 0; l < top; ++l)
+    inv_level_host(in[l], m[l], m[l + 1], threads, group(l), res[l],
+                   in[l + 1], nullptr, false, res[l]);
+  inv_level_host(in[top], m[top], 1, ts.threads, ts.k, res[top], nullptr,
+                 nullptr, true, res[top]);
+  for (uint32_t l = top; l-- > 0;)
+    inv_level_host(in[l], m[l], m[l + 1], threads, group(l), nullptr,
+                   nullptr, res[l + 1], false, res[l]);
+#endif
+  return 0;
+}
+
+// The design the scan replaced, kept as the yardstick it is timed
+// against (no path runs it): one thread per run of `run` consecutive
+// elements, the last run short: a forward pass writes each exclusive
+// prefix product of the run to out and carries the run's product (a
+// zero counts as 1), one Fermat inverse (field::inv) of that product,
+// then a backward pass, out[i] *= acc and acc *= x[i].
+KERNEL batch_inv_runs_kernel(const Fe* __restrict__ x, Fe* __restrict__ out,
+                             uint32_t n, uint32_t run) {
   const uint32_t runs = (n + run - 1) / run;
   FOR_EACH(r, runs) {
     const uint32_t lo = r * run, hi = n - lo < run ? n : lo + run;
-    Fe acc{};
-    acc.w[0] = 1;
+    Fe acc = field_one();
     for (uint32_t i = lo; i < hi; ++i) {
       const Fe v = x[i];
       out[i] = acc;
@@ -967,13 +1319,25 @@ int starks_mimc_trace_canonical(const void* x0, const void* consts,
                                            steps, batch, stream);
 }
 
-// 1 / x over n elements (0 where x is 0), one thread per run of
-// `run` >= 1 elements (the last run may be short).
-int starks_batch_inv(const void* x, void* out, uint32_t n, uint32_t run,
-                     void* stream) {
+// 1 / x over n elements (0 where x is 0) by the block scan, level 0 in
+// blocks of `threads` (a power of two, 32 to 256) x k elements, each
+// level above in blocks of threads x k_up (k and k_up 1, 2, 4, 8 or
+// 16). scratch holds scratch_len elements: twice the element count of
+// every level above 0.
+int starks_batch_inv(const void* x, void* out, void* scratch,
+                     uint32_t scratch_len, uint32_t n, uint32_t threads,
+                     uint32_t k, uint32_t k_up, void* stream) {
+  return batch_inv_scan(F(x), W(out), W(scratch), scratch_len, n, threads,
+                        k, k_up, stream);
+}
+
+// The replaced design: one thread per run of `run` >= 1 elements (the
+// last run may be short).
+int starks_batch_inv_runs(const void* x, void* out, uint32_t n, uint32_t run,
+                          void* stream) {
   if (run == 0) return -1;
-  LAUNCH(batch_inv_kernel, (n + run - 1) / run, 1u, stream, F(x), W(out), n,
-         run);
+  LAUNCH(batch_inv_runs_kernel, (n + run - 1) / run, 1u, stream, F(x),
+         W(out), n, run);
 }
 
 // One thread's chain of `links` (a multiple of 16) dependent

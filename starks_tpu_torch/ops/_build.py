@@ -39,7 +39,8 @@ SIGNATURES = {
     "starks_mimc_trace": [_P, _P, _U, _P, _U, _U, _P],
     "starks_mimc_trace_canonical": [_P, _P, _U, _P, _U, _U, _P],
     "starks_chain_probe": [_U, _U, _P, _P],
-    "starks_batch_inv": [_P, _P, _U, _U, _P],
+    "starks_batch_inv": [_P, _P, _P, _U, _U, _U, _U, _U, _P],
+    "starks_batch_inv_runs": [_P, _P, _U, _U, _P],
 }
 
 _LIB = None

@@ -69,20 +69,28 @@ class FusedPlan:
     plain power tables and the FRI u-table."""
 
     def __init__(self, steps: int, precision: int, G1: int, G2: int,
-                 device):
+                 device, mark=None):
+        """`mark(stage)`, when given, is called once the host tables are
+        built ("host power tables") and once they are on the device
+        ("upload")."""
         self.steps = steps
         self.precision = precision
         fwd_big = power_table(G2, precision)
         # iNTT over the trace domain (DIF, inverse twiddles); forward
         # NTT over the evaluation domain (DIT, its own power table).
-        self.inv_small = _inverse_order(power_table(G1, steps)).to(device)
-        self.xs_big = fwd_big.to(device)
-        self.n_inv_small = int_to_tensor(
-            pow(steps, MODULUS - 2, MODULUS), device)
+        inv_small = _inverse_order(power_table(G1, steps))
         # FRI u-table: G2^-i, i < N/4. Round r's g_r^-i, g_r = G2^(4^r),
         # is entry i * 4^r (fold4's shift 2r), so one table serves all.
-        self.fri_inv_pows = _inverse_order(fwd_big)[:precision // 4].to(
-            device)                                      # [N/4, 8]
+        fri_inv_pows = _inverse_order(fwd_big)[:precision // 4]  # [N/4, 8]
+        if mark:
+            mark("host power tables")
+        self.inv_small = inv_small.to(device)
+        self.xs_big = fwd_big.to(device)
+        self.fri_inv_pows = fri_inv_pows.to(device)
+        self.n_inv_small = int_to_tensor(
+            pow(steps, MODULUS - 2, MODULUS), device)
+        if mark:
+            mark("upload")
 
 
 def ntt_dif(x, table, scale=None):

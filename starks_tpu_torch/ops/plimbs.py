@@ -646,52 +646,81 @@ def mimc_trace(x0, consts, steps: int):
 
 # -- batch inversion (no Pallas counterpart) ------------------------------
 
-# Threads of batch_inv_kernel by default: each inverts a run of
-# n / BATCH_INV_THREADS elements (at least 1) with one Fermat inverse.
-# Chosen on the card (chip_smoke.py phase 2 times runs 1-256 at every
-# size the set-ups invert): fewer threads leave SMs idle, more make more
-# inverses.
-BATCH_INV_THREADS = 2**15
+# The block scan of batch_inv: INV_THREADS threads a block, each holding
+# k elements at level 0 (1, 2, 4, 8 or 16: the most that still leaves
+# INV_MIN_BLOCKS blocks, about one an SM) and INV_GROUP_UP at every
+# level above, so the top block holds few elements (it runs on one SM).
+# Each block's tree costs the same whatever its k, so fewer, fuller
+# blocks win until the card runs short of them (chip_smoke.py phase 2
+# times the set-up sizes; PERF.md gives the shapes timed).
+INV_THREADS = 256
+INV_MAX_GROUP = 16
+INV_MIN_BLOCKS = 128
+INV_GROUP_UP = 2
 
 
-def batch_inv_run(n: int) -> int:
-    """The default run length of batch_inv over n elements."""
-    return -(-n // BATCH_INV_THREADS)
+def batch_inv_shape(n: int) -> tuple:
+    """(threads, k, k_up): the block scan's tile shape over n elements."""
+    k = INV_MAX_GROUP
+    while k > 1 and n < INV_MIN_BLOCKS * INV_THREADS * k:
+        k //= 2
+    return INV_THREADS, k, INV_GROUP_UP
+
+
+def batch_inv_levels(n: int, threads: int, k: int, k_up: int) -> list:
+    """The element count of every level of the scan: n, then the block
+    totals of each level until one block holds them (as csrc/kernels.cu's
+    batch_inv_scan counts them)."""
+    counts, tile = [n], threads * k
+    while counts[-1] > tile:
+        counts.append(-(-counts[-1] // tile))
+        tile = threads * k_up
+    return counts
+
+
+def batch_inv_scratch(n: int, threads: int, k: int, k_up: int) -> int:
+    """Scratch elements of the scan: each level above 0 and its
+    inverses."""
+    return 2 * sum(batch_inv_levels(n, threads, k, k_up)[1:])
 
 
 def batch_inv_plain(x):
-    """`limbs.batch_inv`: the same inverses as any run length gives."""
+    """`limbs.batch_inv`: the same inverses as any tile shape gives."""
     return fl.batch_inv(x)
 
 
-def batch_inv(x, run: int | None = None):
+def batch_inv(x):
     """1 / x over x [n, 8], with 1 / 0 = 0.
 
     The counterpart of JAX `limbs.batch_inv` (starks_tpu/ops/limbs.py:213,
     jitted as `kernels.batch_inv`, starks_tpu/ops/kernels.py:24) and its
     scan form `fused.batch_inv_scan` (starks_tpu/ops/fused.py:706), which
     the JAX set-ups run on the device; they are XLA scans, no Pallas
-    kernel. Runs `batch_inv_kernel` (csrc/kernels.cu): one thread per run
-    of `run` consecutive elements (default `batch_inv_run(n)`; any run
-    gives the same values), a forward pass of prefix products, one
-    Fermat inverse of the run's product (`field::inv`, 255 squarings and
-    248 products) and a backward pass. A zero counts as 1 in the
-    products and maps to 0. Bound of the function (Montgomery's trick:
-    3 modmuls per nonzero element and one inverse in all): operations,
-    about 148 x (3n + 503) multiply-adds, or bytes, 64n (x read and out
-    written, each once), whichever takes longer. The kernel does
-    148 x (3n + 503 n / run) and moves about 128n (the prefixes' round
-    trip through out): its inverses outweigh its other products below
-    run 168."""
+    kernel. Runs the block scan of csrc/kernels.cu at the tile shape
+    `batch_inv_shape(n)`: an up-sweep kernel per level below the top
+    (each thread's coalesced group product, the block's total by a tree
+    in shared memory), one block at the top that inverts the total with
+    `field::inv_chain` (255 squarings, 17 products), and a down-sweep
+    kernel per level (each thread's inverse from the tree, a backward
+    pass over its group). A zero counts as 1 in the products and maps
+    to 0. Counts one launch per call in LAUNCHES; the card runs 2L - 1
+    kernels for L levels (`batch_inv_levels`). Bound of the function
+    (Montgomery's trick: 3 modmuls per nonzero element and one inverse
+    in all): operations, about 148 x (3n + 272) multiply-adds, or bytes,
+    64n (x read and out written, each once), whichever takes longer.
+    The kernels make 3 modmuls an element and move about 128n bytes
+    (the prefixes stored through out and read back)."""
     if x.dim() != 2 or x.shape[0] == 0:
         raise ValueError("x must be non-empty [n, 8]")
     n = x.shape[0]
-    run = batch_inv_run(n) if run is None else run
-    if not 1 <= run <= 2**16 or n >= 2**31:
-        raise ValueError(f"run {run} not in [1, 2^16], or n {n} not below "
-                         f"2^31")
+    if n >= 2**31:
+        raise ValueError(f"n {n} not below 2^31")
     if not _on_card(x):
         return batch_inv_plain(x)
+    shape = batch_inv_shape(n)
+    scratch_len = batch_inv_scratch(n, *shape)
     out = torch.empty_like(x)
-    _launch("batch_inv", x.device, x, out, n, run)
+    scratch = torch.empty((scratch_len, NUM_WORDS), dtype=torch.int32,
+                          device=x.device)
+    _launch("batch_inv", x.device, x, out, scratch, scratch_len, n, *shape)
     return out

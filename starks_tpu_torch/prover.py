@@ -91,23 +91,33 @@ class _StageTimer:
             self.out["total"] = time.perf_counter() - self.t0
 
 
-def _inv_vanishing2(xs, last: int):
+def _inv_vanishing2(xs, last: int, timer: _StageTimer):
     """1/Z2 over the points xs [n, 8], Z2(x) = (x - 1)(x - last), on xs's
     device (zeros map to zero): a constant of the config, built as the
     JAX set-up builds it (starks_tpu/prover.py:436-449), by the sub and
     mul kernels and one batch inverse. The JAX package cuts it in chunks
-    of 2^20 points for its HBM temporaries; here it runs whole."""
+    of 2^20 points for its HBM temporaries; here it runs whole. Marks
+    the stages "1/Z2 sub, sub, mul" and "batch inverse"."""
     one, last = (int_to_tensor(v, xs.device)[None] for v in (1, last))
-    return plimbs.batch_inv(plimbs.mul(plimbs.sub(xs, one),
-                                       plimbs.sub(xs, last)))
+    z2 = plimbs.mul(plimbs.sub(xs, one), plimbs.sub(xs, last))
+    timer.mark("1/Z2 sub, sub, mul")
+    inv_z2 = plimbs.batch_inv(z2)
+    timer.mark("batch inverse")
+    return inv_z2
 
 
 class _FusedSetup:
-    """Per-(steps, config, device) schedule and constants."""
+    """Per-(steps, config, device) schedule and constants. With a dict as
+    `timings`, the set-up's stage seconds go into it, each stage waiting
+    for the device: "host power tables" (the native power tables, with
+    the scalars before them), "upload", "1/Z2 sub, sub, mul", "batch
+    inverse", "rest" (the small tables after them) and "total"."""
 
     _cache = {}
 
-    def __init__(self, steps: int, config: StarkConfig, device):
+    def __init__(self, steps: int, config: StarkConfig, device,
+                 timings: dict = None):
+        timer = _StageTimer(timings, torch.device(device))
         ext = config.extension_factor
         precision = steps * ext
         G2 = pow(config.generator, (MODULUS - 1) // precision, MODULUS)
@@ -118,7 +128,7 @@ class _FusedSetup:
         self.schedule = fused.fri_round_schedule(
             precision, steps * 2, config.fri_base_cutoff)
         last = pow(G2, (steps - 1) * ext, MODULUS)
-        self._tables(last)
+        self._tables(last, timer)
         h = pow(G2, steps, MODULUS)
         self.islope = hf.inv(last - 1)
         self.last_l = int_to_tensor(last, device)
@@ -128,17 +138,22 @@ class _FusedSetup:
             [pow(h, i, MODULUS) for i in range(ext)], device)
         self.eta_l = int_to_tensor(pow(G2, precision // 4, MODULUS), device)
         self._kext = {}
+        timer.mark("rest")
+        timer.finish()
 
-    def _tables(self, last: int):
+    def _tables(self, last: int, timer: _StageTimer):
         self.plan = fused.FusedPlan(self.steps, self.precision, self.G1,
-                                    self.G2, self.device)
-        self.inv_z2 = _inv_vanishing2(self.plan.xs_big, last)
+                                    self.G2, self.device, timer.mark)
+        self.inv_z2 = _inv_vanishing2(self.plan.xs_big, last, timer)
 
     @classmethod
-    def get(cls, steps: int, config: StarkConfig, device) -> "_FusedSetup":
+    def get(cls, steps: int, config: StarkConfig, device,
+            timings: dict = None) -> "_FusedSetup":
+        """The cached set-up; `timings` receives its stages when this
+        call builds it."""
         key = (steps, config, str(device))
         if key not in cls._cache:
-            cls._cache[key] = cls(steps, config, device)
+            cls._cache[key] = cls(steps, config, device, timings)
         return cls._cache[key]
 
     def k_ext(self, round_constants):
@@ -161,32 +176,38 @@ class _ShardedSetup(_FusedSetup):
     domains, and only this shard's rows of the domain tables (x and the
     FRI u-table from the native runtime, 1/Z2 on the device)."""
 
-    def __init__(self, steps: int, config: StarkConfig, mesh):
+    def __init__(self, steps: int, config: StarkConfig, mesh,
+                 timings: dict = None):
         self.mesh = mesh
-        super().__init__(steps, config, mesh.device)
+        super().__init__(steps, config, mesh.device, timings)
 
-    def _tables(self, last: int):
+    def _tables(self, last: int, timer: _StageTimer):
         mesh, dev = self.mesh, self.device
         s, r = mesh.n_shard, mesh.shard_index
         n, q = self.precision, self.precision // 4
         rows = n // s
         self.offset = r * rows
-        self.plan_trace = ntt4step.get_plan(self.steps, self.G1, mesh)
-        self.plan_lde = ntt4step.get_plan(n, self.G2, mesh)
-        self.xs = torch.from_numpy(native.power_slice(
-            self.G2, self.offset, rows)).to(dev)
-        self.inv_z2 = _inv_vanishing2(self.xs, last)
+        xs = native.power_slice(self.G2, self.offset, rows)
         # Round 0's u-table rows [r q/s, (r+1) q/s): every round's
         # columns on this shard read them at stride 4^round.
         self.inv_g2 = hf.inv(self.G2)
-        self.u_local = torch.from_numpy(native.power_slice(
-            self.inv_g2, r * (q // s), q // s)).to(dev)
+        u_local = native.power_slice(self.inv_g2, r * (q // s), q // s)
+        timer.mark("host power tables")
+        self.xs = torch.from_numpy(xs).to(dev)
+        self.u_local = torch.from_numpy(u_local).to(dev)
+        timer.mark("upload")
+        self.inv_z2 = _inv_vanishing2(self.xs, last, timer)
+        self.plan_trace = ntt4step.get_plan(self.steps, self.G1, mesh)
+        self.plan_lde = ntt4step.get_plan(n, self.G2, mesh)
 
     @classmethod
-    def get(cls, steps: int, config: StarkConfig, mesh) -> "_ShardedSetup":
+    def get(cls, steps: int, config: StarkConfig, mesh,
+            timings: dict = None) -> "_ShardedSetup":
+        """The set-up cached on the mesh; `timings` as in
+        `_FusedSetup.get`. Its "rest" holds the four-step plans."""
         key = ("mimc set-up", steps, config)
         if key not in mesh.cache:
-            mesh.cache[key] = cls(steps, config, mesh)
+            mesh.cache[key] = cls(steps, config, mesh, timings)
         return mesh.cache[key]
 
     def k_ext(self, round_constants):

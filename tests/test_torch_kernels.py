@@ -406,8 +406,11 @@ def _host_cases():
         "cube": (plimbs.cube_plain(x), [x], [n, 1], (n, 8)),
         "mimc_trace": (plimbs.mimc_trace_plain(x[:3], k[:5], 9),  # n_k odd
                        [x[:3], k[:5], 5], [9, 3], (3, 9, 8)),
-        "batch_inv": (plimbs.batch_inv_plain(x), [x], [n, 7],  # zeros in x
-                      (n, 8)),
+        # zeros in x; blocks of 32 x 2, then 32 x 1: two levels, the
+        # scan's scratch an output too
+        "batch_inv": (plimbs.batch_inv_plain(x), [x],
+                      [plimbs.batch_inv_scratch(n, 32, 2, 1), n, 32, 2, 1],
+                      (n, 8), (plimbs.batch_inv_scratch(n, 32, 2, 1), 8)),
     }
 
 

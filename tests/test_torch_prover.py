@@ -131,6 +131,26 @@ def test_inv_z2_equals_multi_inv(steps):
     assert tensor_to_ints(su.inv_z2) == want
 
 
+def test_setup_stage_timings():
+    """With `timings`, the set-up records its stages in order (each
+    non-negative, summing to no more than the total) and builds the same
+    1/Z2; a cached set-up records nothing."""
+    steps = 64
+    stages = {}
+    su = _FusedSetup(steps, REFERENCE, "cpu", timings=stages)
+    assert list(stages) == ["host power tables", "upload",
+                            "1/Z2 sub, sub, mul", "batch inverse", "rest",
+                            "total"]
+    assert all(v >= 0 for v in stages.values())
+    assert sum(v for k, v in stages.items() if k != "total") <= (
+        stages["total"])
+    assert su.inv_z2.equal(_FusedSetup(steps, REFERENCE, "cpu").inv_z2)
+    _FusedSetup.get(steps, REFERENCE, "cpu")
+    again = {}
+    _FusedSetup.get(steps, REFERENCE, "cpu", timings=again)
+    assert again == {}
+
+
 # -- against the JAX set-up (last: they wait for the child) ---------------
 
 @pytest.mark.parametrize("steps", SETUP_STEPS)
