@@ -1,0 +1,7 @@
+"""device_idle_pct.batch: 100 x (1 - the union of the device's
+intervals over the profiled window)."""
+from portbench import readers
+
+
+def read(rec):
+    return readers.device_idle_pct(rec)
